@@ -29,16 +29,12 @@ reference):
 Only chain x chain inputs reach this path (the CDQ engine's own
 applicability guard), so there is exactly one (path1, path2) tree family.
 
-This copy differs from centrolign_tpu/chain_ties.py only in carrying
-_subtree_interval and _heap_rank (verbatim from
-centrolign_tpu/ops/chain_scan.py:103-133) instead of importing them:
-that module imports jax. `install()` makes the anchorer's lazy import of
-centrolign_tpu.chain_ties resolve to this module.
+Copy of centrolign_tpu/chain_ties.py, carrying _subtree_interval and
+_heap_rank (verbatim from centrolign_tpu/ops/chain_scan.py:103-133)
+instead of importing them: that module imports jax.
 """
 
 from __future__ import annotations
-
-import sys
 
 import numpy as np
 
@@ -314,16 +310,3 @@ def resolve_affine_tie(anchor, ps1, pe1, ps2, pe2, dp, init, go, ge, scale,
             cache["resolver"] = res
     return res.resolve(anchor, struct, stored)
 
-
-def install() -> None:
-    """Register this module as centrolign_tpu.chain_ties, so that
-    anchorer.py's lazy `from .chain_ties import AffineTieResolver` finds
-    it without importing ops/chain_scan.py and, through it, jax.
-
-    Called by the port's process entry points (cli.main, chip_smoke.py),
-    never at import: a pytest worker that imports this package also runs
-    the JAX package's own tests, which must see the original module."""
-    import centrolign_tpu
-    mod = sys.modules[__name__]
-    sys.modules["centrolign_tpu.chain_ties"] = mod
-    centrolign_tpu.chain_ties = mod

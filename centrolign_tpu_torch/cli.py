@@ -1,38 +1,61 @@
-"""Command-line interface of the port (twin of centrolign_tpu/cli.py): the
-same options and outputs, with the device tier on the device that
-CENTROLIGN_TORCH_DEVICE names (cuda by default; see device.py).
+"""Command-line interface of the port (reference src/main.cpp:23-315): the
+options, outputs and config files of centrolign_tpu/cli.py (CIGAR for
+exactly two sequences, GFA otherwise), with the device tier on the device
+that CENTROLIGN_TORCH_DEVICE names (cuda by default; see device.py).
 
-    python -m centrolign_tpu_torch.cli [options] seqs.fasta > out.cigar
+    python -m centrolign_tpu_torch.cli [options] seqs.fasta > out
 
 Not ported yet: --hosts N > 1 (the pool and jax.distributed executors).
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
-if __name__ == "__main__":
-    # the port's process never imports jax. The JAX package's __init__
-    # imports it where it is installed (to set up a compile cache) and
-    # carries on without it, so make that import fail first.
-    sys.modules.setdefault("jax", None)
+from . import logging as logmod
+from .alignment import explicit_cigar
+from .core import Core
+from .device import resolve_device
+from .io.fasta import parse_fasta
+from .io.gfa import write_gfa
+from .params import Parameters
+from .tree import Tree, in_order_newick_string
+from .utils.memory import format_memory_usage, max_memory_usage
 
-from centrolign_tpu import logging as logmod  # noqa: E402
-from centrolign_tpu.alignment import explicit_cigar  # noqa: E402
-from centrolign_tpu.cli import build_argparser  # noqa: E402
-from centrolign_tpu.io.fasta import parse_fasta  # noqa: E402
-from centrolign_tpu.io.gfa import write_gfa  # noqa: E402
-from centrolign_tpu.params import Parameters  # noqa: E402
-from centrolign_tpu.tree import Tree, in_order_newick_string  # noqa: E402
 
-from . import chain_ties  # noqa: E402
-from .core import TorchCore  # noqa: E402
-from .device import resolve_device  # noqa: E402
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="centrolign_tpu_torch",
+        description="MSA of megabase tandem-repeat DNA on an NVIDIA GPU")
+    ap.add_argument("fasta", nargs="?", default="")
+    ap.add_argument("-T", "--tree", default="")
+    ap.add_argument("-A", "--all-pairs", default="")
+    ap.add_argument("-S", "--all-subprobs", default="")
+    ap.add_argument("-s", "--subalignments", default="")
+    ap.add_argument("-c", "--cyclize", action="store_true")
+    ap.add_argument("-y", "--cyclizing-size", type=int, default=None)
+    ap.add_argument("-m", "--max-count", type=int, default=None)
+    ap.add_argument("-a", "--max-anchors", type=int, default=None)
+    ap.add_argument("-p", "--count-power", type=float, default=None)
+    ap.add_argument("-g", "--chain-alg", type=int, default=None)
+    ap.add_argument("-u", "--no-unaln", action="store_true")
+    ap.add_argument("-v", "--verbosity", type=int, default=None)
+    ap.add_argument("-C", "--config", default="")
+    ap.add_argument("-G", "--generate-config", action="store_true")
+    ap.add_argument("-R", "--restart", action="store_true")
+    ap.add_argument("-t", "--threads", type=int, default=None)
+    ap.add_argument("--skip-calibration", action="store_true")
+    ap.add_argument("--force-gfa-output", action="store_true")
+    ap.add_argument("--bond-prefix", default="")
+    # extension over the reference CLI: layer-parallel subproblem dispatch
+    # across worker processes/hosts (not ported yet: main() refuses N > 1)
+    ap.add_argument("--hosts", type=int, default=None)
+    return ap
 
 
 def main(argv=None) -> int:
-    chain_ties.install()
     args = build_argparser().parse_args(argv)
 
     params = Parameters()
@@ -133,7 +156,7 @@ def main(argv=None) -> int:
         newick = in_order_newick_string(seq_names)
     tree = Tree(newick)
 
-    core = TorchCore(parsed, tree, device)
+    core = Core(parsed, tree, device)
     if len(seq_names) == 2:
         params.set("preserve_subproblems", True)
     params.apply(core)
@@ -151,8 +174,6 @@ def main(argv=None) -> int:
         root = core.root_subproblem()
         write_gfa(root.graph, root.tableau, sys.stdout)
 
-    from centrolign_tpu.utils.memory import (format_memory_usage,
-                                             max_memory_usage)
     max_mem = max_memory_usage()
     if max_mem < 0:
         logmod.log(logmod.Basic, "Failed to measure memory usage.")

@@ -37,24 +37,45 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
-    if name in _libs:
-        return _libs[name]
+def _library_path(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    if not os.path.exists(so):
-        nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build_libraries(names) -> None:
+    """Build every csrc/<name>.cu of `names` that is not built yet, one
+    nvcc process per source, all started together."""
+    todo = [n for n in names if not os.path.exists(_library_path(n))]
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name in todo:
+        so = _library_path(name)
         tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
+        src = os.path.join(CSRC, f"{name}.cu")
+        procs.append((name, so, tmp, src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, so, tmp, src, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{log}")
+            continue
         os.replace(tmp, so)
-        build_info[name] = (time.perf_counter() - t0, r.stdout + r.stderr)
-    _libs[name] = ctypes.CDLL(so)
+        build_info[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    if name not in _libs:
+        build_libraries([name])
+        _libs[name] = ctypes.CDLL(_library_path(name))
     return _libs[name]

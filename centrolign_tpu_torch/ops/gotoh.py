@@ -30,8 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from centrolign_tpu.alignment import GAP
-from centrolign_tpu.ops.align_params import MININF, AlignmentParams
+from ..alignment import GAP
+from .align_params import MININF, AlignmentParams
 
 # parameter table columns (0-3 and the go/ge run as in gotoh_pallas.py:753)
 COL_V1, COL_V2, COL_MATCH, COL_MISMATCH, COL_GAPS = 0, 1, 2, 3, 4

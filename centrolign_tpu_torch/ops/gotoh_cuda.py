@@ -1,6 +1,11 @@
 """Chain-gap Gotoh tier: kernel wrappers and dispatch (twin of the dispatch
 half of centrolign_tpu/ops/gotoh_pallas.py, :739-935).
 
+`gotoh_align_device` is the single-problem entry (the counterpart of
+gotoh_pallas.py::gotoh_align_pallas and gotoh_align_pallas_device_tb over
+the Pallas kernel gotoh_fill_pallas, :177-328): one job through the same
+dispatch.
+
 A dispatch turns a list of jobs (seq1 int32[], seq2 int32[], swap_pref,
 AlignmentParams) into one fill launch and one traceback launch on the
 current stream of the given device, whatever the jobs' widths, and returns
@@ -21,6 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import _build
 from .gotoh import (COL_BP_HI, COL_BP_LO, COL_GAPS, COL_LANE_IS_I, COL_NPW,
                     COL_SEQ_OFF, COL_SWAP, MAX_PW, N_COLS, gotoh_fill_plain,
@@ -243,3 +249,20 @@ def gotoh_align_batched(jobs, device: torch.device):
     Returns the per-job list of (alignment (L,2) int64, score int), each
     identical to centrolign_tpu.ops.gotoh.gotoh_align on that job."""
     return gotoh_fetch(gotoh_dispatch(jobs, device))
+
+
+def gotoh_align_device(seq1, seq2, params, swap_pref: bool = False,
+                       device: torch.device | None = None):
+    """Global piecewise-affine alignment of one pair of encoded sequences
+    on `device` (default: the one CENTROLIGN_TORCH_DEVICE names): one fill
+    and one traceback launch on a card, the plain versions on the CPU.
+    Returns (alignment (L,2) int64 with GAP=-1, score int), identical to
+    centrolign_tpu.ops.gotoh.gotoh_align."""
+    if device is None:
+        device = resolve_device()
+        if device is None:
+            raise ValueError("gotoh_align_device needs a device, and "
+                             "CENTROLIGN_TORCH_DEVICE is none")
+    job = (np.asarray(seq1, np.int32), np.asarray(seq2, np.int32),
+           bool(swap_pref), params)
+    return gotoh_fetch(gotoh_dispatch([job], device))[0]

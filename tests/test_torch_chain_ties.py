@@ -1,14 +1,11 @@
 """The port's jax-free chain_ties copy against the JAX package's module.
 
 Tolerance: exact. The heap-rank helpers must agree on every input up to
-n = 300, and AffineTieResolver must pick the same predecessor on every tied
+n = 300, AffineTieResolver must pick the same predecessor on every tied
 traceback step that the tie-dense fixtures of tests/test_chain_ties.py
-produce.
+produce, and the port's own anchorer, which reaches the port's resolver,
+must build the JAX package's chain on those fixtures.
 """
-
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -18,9 +15,6 @@ from centrolign_tpu.ops import chain_scan
 from centrolign_tpu_torch import chain_ties as torch_ties
 
 from test_chain_ties import _run_chain, _setup_graphs, _tie_dense_matches
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
 
 def test_heap_helpers_match():
     for n in range(301):
@@ -60,38 +54,48 @@ def test_resolver_matches_on_tie_cases(monkeypatch, trial):
         assert port.resolve(anchor, struct, stored) == want
 
 
-_INSTALLED = r"""
-import os, sys
-sys.modules["jax"] = None
-sys.path[:0] = [{repo!r}, os.path.join({repo!r}, "tests")]
-from centrolign_tpu_torch import chain_ties
-chain_ties.install()
-import numpy as np
-import centrolign_tpu.chain_ties
-assert centrolign_tpu.chain_ties is chain_ties
-from test_chain_ties import _anchorer, _setup_graphs, _tie_dense_matches
-calls = []
-resolve = chain_ties.AffineTieResolver.resolve
-def counted(self, *a):
-    calls.append(a)
-    return resolve(self, *a)
-chain_ties.AffineTieResolver.resolve = counted
-rng = np.random.default_rng(9100)
-g1, g2, t1, t2, xm1, xm2 = _setup_graphs(rng, 260, 260)
-matches = _tie_dense_matches(rng, 256, n_pos=24, dup=3)
-def chain(cdq):
-    os.environ["CENTROLIGN_TPU_CHAIN_CDQ"] = "1" if cdq else "0"
-    out = _anchorer().anchor_chain(matches, g1, g2, t1, t2, xm1, xm2)
-    return [(a.walk1.tolist(), a.walk2.tolist(), a.score) for a in out]
-assert chain(True) == chain(False)
-assert calls
-assert "centrolign_tpu.ops.chain_scan" not in sys.modules
-print("ok")
-"""
+def _port_chain(monkeypatch, matches, rng_seed):
+    """The port's anchorer (CDQ engine, ties through the port's
+    chain_ties) on the graphs of _setup_graphs(seed)."""
+    from centrolign_tpu_torch import anchorer, match_finder, modify_graph
+    from centrolign_tpu_torch.path_merge import PathMerge
+    from centrolign_tpu_torch.score_function import ScoreFunction
+
+    rng = np.random.default_rng(rng_seed)
+    seqs = ["".join("ACGT"[i] for i in rng.integers(0, 4, 260))
+            for _ in range(2)]
+    g1 = modify_graph.make_base_graph("a", seqs[0])
+    g2 = modify_graph.make_base_graph("b", seqs[1])
+    t1 = modify_graph.add_sentinels(g1, 5, 6)
+    t2 = modify_graph.add_sentinels(g2, 7, 8)
+    ms = [match_finder.MatchSet(
+        walks1=m.walks1.copy(), walks2=m.walks2.copy(), count1=m.count1,
+        count2=m.count2, full_length=m.full_length) for m in matches]
+    monkeypatch.setenv("CENTROLIGN_TPU_CHAIN_CDQ", "1")
+    anc = anchorer.Anchorer(
+        score_function=ScoreFunction(),
+        chaining_algorithm=anchorer.ChainAlgorithm.SparseAffine,
+        autocalibrate_gap_penalties=False,
+        split_matches_at_branchpoints=False, do_fill_in_anchoring=False)
+    chain = anc.anchor_chain(ms, g1, g2, t1, t2, PathMerge(g1, t1),
+                             PathMerge(g2, t2))
+    return [(tuple(a.walk1.tolist()), tuple(a.walk2.tolist()),
+             a.score, a.gap_before, a.gap_after,
+             a.gap_score_before, a.gap_score_after) for a in chain]
 
 
-def test_install_serves_the_anchorer_without_jax():
-    r = subprocess.run([sys.executable, "-c", _INSTALLED.format(repo=REPO)],
-                       capture_output=True, text=True, timeout=300, cwd=REPO)
-    assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "ok"
+def test_port_anchorer_resolves_ties_like_jax(monkeypatch):
+    rng = np.random.default_rng(9100)
+    graphs = _setup_graphs(rng, 260, 260)
+    matches = _tie_dense_matches(rng, 256, n_pos=24, dup=3)
+    want = _run_chain(monkeypatch, matches, graphs, cdq=True)
+    calls = []
+    resolve = torch_ties.AffineTieResolver.resolve
+
+    def counted(self, *args):
+        calls.append(args)
+        return resolve(self, *args)
+
+    monkeypatch.setattr(torch_ties.AffineTieResolver, "resolve", counted)
+    assert _port_chain(monkeypatch, matches, 9100) == want
+    assert calls, "the port's anchorer never reached its tie resolver"

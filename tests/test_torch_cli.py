@@ -1,9 +1,13 @@
-"""The port's CLI against the JAX package's, in processes without jax.
+"""The port's CLI against the JAX package's, and the port's independence
+from it.
 
-Every run of the port is a subprocess in which `import jax` fails, as on a
-machine without jax. Its CIGAR must be byte-identical to the JAX CLI's on
-the same FASTA (native host path, CENTROLIGN_TPU_USE_DEVICE=0), with the
-device tier on the CPU and its threshold lowered so that it takes gaps.
+Every run of the port is a subprocess with nothing blocked; at its end
+neither jax nor any module of the JAX package may be loaded. Its CIGAR
+(pairwise) or GFA (MSA) must be byte-identical to the JAX CLI's on the same
+FASTA (native host path, CENTROLIGN_TPU_USE_DEVICE=0), with the device tier
+on the CPU and its threshold lowered so that it takes gaps. The package and
+chip_smoke.py are also scanned: no import of jax or of the JAX package, no
+write to sys.modules.
 """
 
 import ast
@@ -24,22 +28,25 @@ from conftest import mutate_sequence, random_sequence
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "centrolign_tpu_torch")
 
-# runs the port's cli.main with jax blocked; the counters go to stderr
+# runs the port's cli.main; the counters and the modules loaded go to stderr
 _PORT = r"""
 import contextlib, io, json, sys
-sys.modules["jax"] = None
 sys.path.insert(0, {repo!r})
-from centrolign_tpu_torch import cli
-from centrolign_tpu_torch.ops import gotoh_cuda
-from centrolign_tpu import metrics
+from centrolign_tpu_torch import cli, metrics
+from centrolign_tpu_torch.ops import gotoh_cuda, popoa_dag_cuda
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
     rc = cli.main({argv!r})
 sys.stdout.write(out.getvalue())
+mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m == "centrolign_tpu" or m.startswith("centrolign_tpu.")]
 print(json.dumps({{"rc": rc, "jobs": gotoh_cuda.DISPATCHED_JOBS,
                   "fills": gotoh_cuda.FILL_LAUNCHES,
+                  "dag_jobs": popoa_dag_cuda.DISPATCHED_JOBS,
+                  "dag_fills": popoa_dag_cuda.FILL_LAUNCHES,
                   "pod": metrics.counters["pod"][1] if "pod" in metrics.counters else 0,
-                  "jax": sys.modules.get("jax") is not None}}), file=sys.stderr)
+                  "podag": metrics.counters["podag"][1] if "podag" in metrics.counters else 0,
+                  "foreign": mods}}), file=sys.stderr)
 sys.exit(rc)
 """
 
@@ -102,7 +109,7 @@ def test_cigar_matches_jax_cli_with_device_tier_on_cpu(pairs, seed):
     assert stats["jobs"] > 0 and stats["pod"] > 0
     # launches count CUDA kernel launches; the CPU runs the plain versions
     assert stats["fills"] == 0
-    assert not stats["jax"]
+    assert stats["foreign"] == []
 
 
 def test_cigar_matches_without_device_tier(pairs):
@@ -113,6 +120,7 @@ def test_cigar_matches_without_device_tier(pairs):
     assert r.returncode == 0, r.stderr
     assert r.stdout == ref.stdout
     assert stats["jobs"] == 0 and stats["pod"] == 0
+    assert stats["foreign"] == []
 
 
 def test_module_entry_point(pairs):
@@ -167,23 +175,96 @@ def test_missing_nvcc_raises(monkeypatch):
         _build.find_nvcc()
 
 
-def _jax_imports(path):
+def _foreign_imports(path):
+    """Imports of jax or of the JAX package, and writes to sys.modules."""
     tree = ast.parse(open(path).read(), path)
     found = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
+            names = ["." * node.level + (node.module or "")]
         else:
-            continue
-        found += [n for n in names if n == "jax" or n.startswith("jax.")]
+            names = []
+        found += [n for n in names if n.split(".")[0] in ("jax",
+                                                          "centrolign_tpu")]
+        targets = (node.targets if isinstance(node, ast.Assign) else
+                   [node.target] if isinstance(node, ast.AugAssign) else [])
+        for t in targets:
+            if isinstance(t, ast.Subscript) and ast.unparse(
+                    t.value) == "sys.modules":
+                found.append(f"sys.modules[...] = at line {node.lineno}")
+        if isinstance(node, ast.Call) and ast.unparse(node.func) in (
+                "sys.modules.setdefault", "sys.modules.update",
+                "sys.modules.__setitem__"):
+            found.append(f"{ast.unparse(node.func)} at line {node.lineno}")
     return found
 
 
-def test_port_never_imports_jax():
+def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 8
-    assert {f: _jax_imports(f) for f in files if _jax_imports(f)} == {}
+    return files
+
+
+def test_port_never_imports_jax():
+    files = _port_files()
+    assert len(files) > 40
+    found = {f: _foreign_imports(f) for f in files}
+    assert {f: v for f, v in found.items() if v} == {}
+
+
+def test_self_containment_scan_has_teeth(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import sys\nimport jax.numpy as jnp\n"
+                   "from centrolign_tpu.graph import BaseGraph\n"
+                   "sys.modules['jax'] = None\n"
+                   "sys.modules.setdefault('x', None)\n"
+                   "from centrolign_tpu_torch import cli\n")
+    assert len(_foreign_imports(str(bad))) == 4
+
+
+def _write_msa(path, seed):
+    """Three mutated copies of one ~4 kb sequence, each with its own random
+    blocks at four shared places: the blocks hold no anchors, so the first
+    merge leaves bubbles there and the second aligns a chain to a DAG
+    across them."""
+    rng = np.random.default_rng(seed)
+    base = random_sequence(rng, 4000)
+    starts = sorted(rng.choice(np.arange(300, 3400, 500), 4, replace=False))
+    out = []
+    for i in range(3):
+        s = mutate_sequence(rng, base, sub_rate=0.02, indel_rate=0.01)
+        parts, pos = [], 0
+        for start in starts:
+            L = int(rng.integers(150, 300))
+            parts += [s[pos:start],
+                      random_sequence(rng, L + int(rng.integers(-40, 40)))]
+            pos = start + L
+        parts.append(s[pos:])
+        out.append(f">g{i}\n{''.join(parts)}\n")
+    path.write_text("".join(out))
+    return str(path)
+
+
+def test_msa_gfa_matches_jax_cli_with_dag_tier_on_cpu(tmp_path):
+    fasta = _write_msa(tmp_path / "msa.fasta", 909)
+    argv = ["-v", "0", "-u", fasta]
+    ref = _run_jax_cli(argv)
+    assert ref.returncode == 0, ref.stderr
+    r, stats = _run_port(argv, CENTROLIGN_TORCH_DEVICE="cpu",
+                         CENTROLIGN_TORCH_DEVICE_DAG="1",
+                         CENTROLIGN_TORCH_DEVICE_MIN_CELLS="10000")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("H\t") and r.stdout == ref.stdout
+    assert stats["dag_jobs"] > 0 and stats["podag"] > 0
+    assert stats["dag_fills"] == 0
+    assert stats["foreign"] == []
+
+
+def test_device_memory_usage_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from centrolign_tpu_torch.utils.memory import device_memory_usage
+    assert device_memory_usage() == -1

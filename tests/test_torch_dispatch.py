@@ -14,8 +14,16 @@ import torch
 from centrolign_tpu.ops.align_params import AlignmentParams
 from centrolign_tpu.ops.gotoh import gotoh_align as jax_gotoh_align
 from centrolign_tpu_torch.ops import gotoh_cuda as gc
+from centrolign_tpu_torch.ops.align_params import params_from_arrays
 
 CPU = torch.device("cpu")
+
+
+def _port(jobs):
+    """The jobs with the JAX package's parameters turned into the port's."""
+    return [(s1, s2, swp, params_from_arrays(
+        p.match, p.mismatch, np.asarray(p.gap_open), np.asarray(p.gap_extend)))
+        for s1, s2, swp, p in jobs]
 
 
 def _bag():
@@ -49,13 +57,14 @@ def _check(jobs, results):
 
 def test_dispatch_fetch_matches_jax():
     jobs = _bag()
-    handles = [gc.gotoh_dispatch(jobs[:40], CPU), gc.gotoh_dispatch(jobs[40:], CPU)]
+    handles = [gc.gotoh_dispatch(_port(jobs[:40]), CPU),
+               gc.gotoh_dispatch(_port(jobs[40:]), CPU)]
     results = [r for h in handles for r in gc.gotoh_fetch(h)]
     _check(jobs, results)
 
 
 def test_dispatch_splits_launches(monkeypatch):
-    jobs = _bag()[:20]
+    jobs = _port(_bag()[:20])
     one = gc.gotoh_align_batched(jobs, CPU)
     # a cap of one job's backpointers per launch: one launch per job
     monkeypatch.setattr(gc, "MAX_LAUNCH_BP_BYTES", 1)
@@ -68,7 +77,7 @@ def test_dispatch_splits_launches(monkeypatch):
 
 def test_counters_count_jobs_not_cpu_launches():
     gc.reset_counters()
-    gc.gotoh_align_batched(_bag()[:3], CPU)
+    gc.gotoh_align_batched(_port(_bag()[:3]), CPU)
     # launches count kernel launches only; the CPU runs the plain versions
     assert (gc.DISPATCHED_JOBS, gc.FILL_LAUNCHES, gc.TRACEBACK_LAUNCHES) == (3, 0, 0)
     gc.reset_counters()
@@ -82,6 +91,7 @@ def test_params_table_layout():
              rng.integers(0, 4, 5).astype(np.int32), True, p3.truncated(2)),
             (rng.integers(0, 4, 3).astype(np.int32),
              rng.integers(0, 4, 9).astype(np.int32), False, p3)]
+    jobs = _port(jobs)
     tab = gc.params_table(jobs)
     assert tab.dtype == torch.int32 and tab.shape == (2, 16)
     # columns 0..4+2npw as the Pallas packed kernels' params rows
@@ -102,7 +112,7 @@ def test_params_table_splits_int64_offset():
     # a job past 2^32 backpointer entries keeps its offset in two words
     p = AlignmentParams()
     big = np.zeros(70000, np.int32)
-    jobs = [(big, big, False, p), (big[:3], big[:4], False, p)]
+    jobs = _port([(big, big, False, p), (big[:3], big[:4], False, p)])
     tab = gc.params_table(jobs).numpy().astype(np.int64)
     off = (tab[1, 14] & 0xFFFFFFFF) | (tab[1, 15] << 32)
     assert off == (2 * 70000 + 1) * 70001
@@ -110,7 +120,7 @@ def test_params_table_splits_int64_offset():
 
 
 def test_wrappers_reject_other_devices():
-    jobs = _bag()[:1]
+    jobs = _port(_bag()[:1])
     table = gc.params_table(jobs).to("meta")
     with pytest.raises(ValueError):
         gc.gotoh_fill(table, gc.pack_seqs(jobs).to("meta"),

@@ -15,7 +15,9 @@ from centrolign_tpu.ops import gotoh as jax_gotoh
 from centrolign_tpu.ops.align_params import AlignmentParams
 from centrolign_tpu.ops.popoa_ref import popoa
 from centrolign_tpu_torch.ops import gotoh as torch_gotoh
-from centrolign_tpu_torch.ops.gotoh_cuda import pack_seqs, params_table
+from centrolign_tpu_torch.ops.align_params import params_from_arrays
+from centrolign_tpu_torch.ops.gotoh_cuda import (gotoh_align_device,
+                                                 pack_seqs, params_table)
 
 from util import graph_sinks, graph_sources, random_chain
 
@@ -26,6 +28,12 @@ PARAMS = [
 ]
 # every truncation the stitcher can hand the kernel: npw 1..3
 TRUNCATED = [p.truncated(k) for p in PARAMS for k in range(1, p.num_pw + 1)]
+
+
+def _port(p):
+    """The JAX package's parameters as the port's."""
+    return params_from_arrays(p.match, p.mismatch, np.asarray(p.gap_open),
+                              np.asarray(p.gap_extend))
 
 
 def _jax_fill(s1, s2, params, swap_pref):
@@ -69,7 +77,7 @@ def test_fill_matches_jax_scan(params, lane_is_i, swap_pref):
     bp_j, score_j, lii = _jax_fill(s1, s2, params, swap_pref)
     assert lii == lane_is_i
 
-    job = (s1, s2, swap_pref, params)
+    job = (s1, s2, swap_pref, _port(params))
     bp_t, score_t = torch_gotoh.gotoh_fill_plain(params_table([job]),
                                                  pack_seqs([job]))
     bp_t = bp_t.view(torch.int16).numpy().astype(np.int64).reshape(bp_j.shape)
@@ -90,8 +98,8 @@ def test_align_matches_jax_and_popoa(params, trial):
         g1, g2, graph_sources(g1), graph_sources(g2),
         graph_sinks(g1), graph_sinks(g2), params)
     for swap_pref in (False, True):
-        aln_t, score_t = torch_gotoh.gotoh_align(g1.labels, g2.labels, params,
-                                                 swap_pref=swap_pref)
+        aln_t, score_t = torch_gotoh.gotoh_align(
+            g1.labels, g2.labels, _port(params), swap_pref=swap_pref)
         aln_j, score_j = jax_gotoh.gotoh_align(g1.labels, g2.labels, params,
                                                swap_pref=swap_pref)
         assert score_t == score_j == score_o
@@ -121,7 +129,7 @@ def test_align_low_entropy():
     aln_o, score_o = popoa(
         g1, g2, graph_sources(g1), graph_sources(g2),
         graph_sinks(g1), graph_sinks(g2), params)
-    aln_t, score_t = torch_gotoh.gotoh_align(s1, s2, params)
+    aln_t, score_t = torch_gotoh.gotoh_align(s1, s2, _port(params))
     aln_j, score_j = jax_gotoh.gotoh_align(s1, s2, params)
     assert score_t == score_j == score_o
     assert np.array_equal(aln_t, aln_o)
@@ -132,7 +140,40 @@ def test_align_empty_side():
     params = AlignmentParams()
     s = np.array([0, 1, 2, 3], np.int32)
     for s1, s2 in ((s, s[:0]), (s[:0], s)):
-        aln_t, score_t = torch_gotoh.gotoh_align(s1, s2, params)
+        aln_t, score_t = torch_gotoh.gotoh_align(s1, s2, _port(params))
         aln_j, score_j = jax_gotoh.gotoh_align(s1, s2, params)
         assert score_t == score_j
         assert np.array_equal(aln_t, aln_j)
+
+
+@pytest.mark.parametrize("params", PARAMS,
+                         ids=lambda p: f"{p.match}-{p.mismatch}-npw{p.num_pw}")
+@pytest.mark.parametrize("shape", [(57, 80), (90, 31), (1, 40), (0, 9)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_align_device_on_cpu_matches_jax(params, shape):
+    """The single-problem entry (K4's counterpart) on CPU tensors runs the
+    plain versions; its result must equal the JAX package's gotoh_align."""
+    rng = np.random.default_rng(shape[0] * 101 + shape[1] + params.num_pw)
+    s1 = rng.integers(0, 4, shape[0]).astype(np.int32)
+    s2 = np.resize(s1, shape[1]).astype(np.int32) if shape[0] else \
+        rng.integers(0, 4, shape[1]).astype(np.int32)
+    if len(s2):
+        s2[rng.integers(0, len(s2), max(1, len(s2) // 7))] = rng.integers(0, 4)
+    for swap_pref in (False, True):
+        aln_t, score_t = gotoh_align_device(s1, s2, _port(params), swap_pref,
+                                            device=torch.device("cpu"))
+        aln_j, score_j = jax_gotoh.gotoh_align(s1, s2, params,
+                                               swap_pref=swap_pref)
+        assert score_t == score_j
+        assert aln_t.dtype == np.int64
+        assert np.array_equal(aln_t, aln_j)
+
+
+def test_align_device_follows_the_environment(monkeypatch):
+    s = np.array([0, 1, 2, 3, 3], np.int32)
+    monkeypatch.setenv("CENTROLIGN_TORCH_DEVICE", "cpu")
+    aln, score = gotoh_align_device(s, s, _port(PARAMS[0]))
+    assert score == 5 * PARAMS[0].match and len(aln) == 5
+    monkeypatch.setenv("CENTROLIGN_TORCH_DEVICE", "none")
+    with pytest.raises(ValueError):
+        gotoh_align_device(s, s, _port(PARAMS[0]))

@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from centrolign_tpu.ops.align_params import AlignmentParams
 from centrolign_tpu_torch.ops import gotoh as plain
 from centrolign_tpu_torch.ops import gotoh_cuda as gc
+from centrolign_tpu_torch.ops.align_params import AlignmentParams
 
 pytestmark = pytest.mark.cuda
 

@@ -14,10 +14,18 @@ import torch
 from centrolign_tpu.ops.align_params import AlignmentParams
 from centrolign_tpu.ops.gotoh_pallas import _traceback_pack8_on_device
 from centrolign_tpu_torch.ops import gotoh_cuda as gc
+from centrolign_tpu_torch.ops.align_params import params_from_arrays
 
 from test_torch_gotoh import _jax_fill
 
 PARAMS = AlignmentParams(20, 80, (60, 800, 2500), (30, 5, 1))
+
+
+def _port(jobs):
+    """The jobs with the JAX package's parameters turned into the port's."""
+    return [(s1, s2, swp, params_from_arrays(
+        p.match, p.mismatch, np.asarray(p.gap_open), np.asarray(p.gap_extend)))
+        for s1, s2, swp, p in jobs]
 
 
 def _group(rng, lane_is_i, swap_pref, npw):
@@ -55,14 +63,14 @@ def test_traceback_rows_match_jax(npw, lane_is_i, swap_pref):
     flat = np.concatenate([bp.reshape(-1) for bp, _, _ in fills])
     got = gc.gotoh_traceback(
         torch.from_numpy(flat.astype(np.int16)).view(torch.uint16),
-        torch.from_numpy(scores), gc.params_table(jobs), D)
+        torch.from_numpy(scores), gc.params_table(_port(jobs)), D)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
 
 
 def test_traceback_rejects_short_cap():
     rng = np.random.default_rng(0)
-    jobs = _group(rng, True, False, 2)
+    jobs = _port(_group(rng, True, False, 2))
     bp, score = gc.gotoh_fill(gc.params_table(jobs), gc.pack_seqs(jobs),
                               *gc.launch_sizes(jobs)[:2])
     cap = gc.launch_sizes(jobs)[2]
