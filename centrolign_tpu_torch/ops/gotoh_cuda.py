@@ -15,6 +15,10 @@ kernels read each job's shape, orientation and parameters from its row of
 the parameter table, so the JAX package's compile buckets and its
 pack8 / packmulti / row-kernel split have no counterpart here.
 
+A fill launch follows a plan (`fill_plan`, from the jobs' shapes on the
+host): which block or cluster of blocks takes which job and which of its
+lanes, how many lanes each thread holds and how many threads a block has.
+
 On CUDA tensors the wrappers launch csrc/gotoh.cu or raise; on CPU tensors
 they run the plain versions of ops/gotoh.py.
 """
@@ -22,6 +26,7 @@ they run the plain versions of ops/gotoh.py.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -37,10 +42,32 @@ FILL_LAUNCHES = 0
 TRACEBACK_LAUNCHES = 0
 DISPATCHED_JOBS = 0
 
-FILL_THREADS = 512
 TRACEBACK_THREADS = 64
 # cap on one launch's backpointer buffer; a dispatch over it splits
 MAX_LAUNCH_BP_BYTES = 2 << 30
+
+# the fill's launch plan. A job with more lanes (short side + 1) than
+# CLUSTER_MIN_LANES is split over a cluster of CLUSTER blocks, and a launch
+# that holds one runs all its blocks in clusters of that size; jobs are
+# split, the most diagonals first, only while the launch's clusters fit
+# the card at once (MAX_CLUSTERS: 16 clusters of 8 of an H100's 132 SMs),
+# unless one block cannot hold the job.
+CLUSTER = 8
+CLUSTER_MIN_LANES = 128
+MAX_CLUSTERS = 16
+# lanes per thread -> most threads a block may have (csrc/gotoh.cu,
+# max_threads)
+FILL_THREADS = {1: 512, 2: 512, 4: 512, 8: 448}
+# csrc/gotoh.cu: diagonals between two barriers (kChunk), ring entries per
+# warp (kRing), ints per entry (kSlot) and the bytes before the rings
+# (kMbarBytes)
+FILL_CHUNK = 8
+RING_ENTRIES = 4 * FILL_CHUNK
+RING_SLOT_INTS = 1 + MAX_PW
+MBAR_BYTES = 16 * (RING_ENTRIES // FILL_CHUNK) + 16
+# other-side labels staged in shared memory (4 bytes each); past them the
+# kernel reads device memory
+STAGE_LABELS = 16384
 
 
 def reset_counters() -> None:
@@ -90,16 +117,79 @@ def pack_seqs(jobs) -> torch.Tensor:
                             else np.zeros(0, np.int32))
 
 
+@dataclass(frozen=True)
+class FillPlan:
+    """One fill launch: `blocks` holds an int32 row per block (job, rank of
+    the block in the job's group, group size, warps of the block holding
+    lanes; job -1 for an empty block), in launch order; blocks run in
+    clusters of `cluster`, each of `threads` threads holding
+    `lanes_per_thread` lanes; `smem` bytes of shared memory hold the rings
+    and `stage` labels of the other side."""
+    blocks: np.ndarray
+    cluster: int
+    lanes_per_thread: int
+    threads: int
+    stage: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fill_plan(shapes, cluster_min_lanes: int = CLUSTER_MIN_LANES) -> FillPlan:
+    """The launch plan for jobs of `shapes` ((V1, V2) each, table order).
+    A job of more than `cluster_min_lanes` lanes takes a whole cluster, its
+    lanes cut into CLUSTER contiguous slices, as long as the launch's
+    clusters stay within MAX_CLUSTERS; every other job takes one block,
+    packed CLUSTER to a cluster when the launch has clusters. The jobs with
+    the most diagonals come first. Lanes per thread and threads per block
+    follow from the widest slice a block holds."""
+    lanes = [min(a, b) + 1 for a, b in shapes]
+    one_block = max(r * n for r, n in FILL_THREADS.items())
+    by_diagonals = sorted(range(len(shapes)),
+                          key=lambda k: (-sum(shapes[k]), k))
+    split = [False] * len(shapes)
+    n_split = 0
+    for k in by_diagonals:
+        rest = len(shapes) - n_split - 1
+        fits = n_split + 1 + _cdiv(rest, CLUSTER) <= MAX_CLUSTERS
+        if lanes[k] > cluster_min_lanes and (fits or lanes[k] > one_block):
+            split[k] = True
+            n_split += 1
+    C = CLUSTER if any(split) else 1
+    per_block = [_cdiv(w, C) if s else w for w, s in zip(lanes, split)]
+    widest = max(per_block, default=1)
+    R = next((r for r, n in FILL_THREADS.items() if r * n >= widest), None)
+    if R is None:
+        raise ValueError(f"a block of the Gotoh fill holds at most "
+                         f"{one_block} lanes; a job needs {widest} (short "
+                         f"side too wide)")
+    warps = [_cdiv(p, 32 * R) for p in per_block]
+    order = sorted(by_diagonals, key=lambda k: not split[k])
+    rows = []
+    for k in order:
+        if split[k]:
+            rows += [(k, rank, C, warps[k]) for rank in range(C)]
+        else:
+            rows.append((k, 0, 1, warps[k]))
+    rows += [(-1, 0, 1, 0)] * (-len(rows) % C)
+    threads = 32 * max(warps, default=1)
+    stage = min(max((max(a, b) for a, b in shapes), default=0), STAGE_LABELS)
+    smem = MBAR_BYTES + 4 * ((threads // 32) * RING_ENTRIES * RING_SLOT_INTS
+                             + stage)
+    return FillPlan(np.asarray(rows, np.int32).reshape(-1, 4), C, R, threads,
+                    stage, smem)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("gotoh")
     if not getattr(lib, "declared", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.gotoh_fill_launch.restype = i32
-        lib.gotoh_fill_launch.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, vp]
+        lib.gotoh_fill_launch.argtypes = [vp, vp, vp, vp, vp, *[i32] * 6, vp]
         lib.gotoh_traceback_launch.restype = i32
         lib.gotoh_traceback_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
-        lib.gotoh_scratch_rows.restype = i32
-        lib.gotoh_scratch_rows.argtypes = []
         lib.declared = True
     return lib
 
@@ -116,11 +206,11 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def gotoh_fill(table: torch.Tensor, seqs: torch.Tensor, bp_size: int,
-               max_w: int):
+               plan: FillPlan):
     """Fill every job of `table`. Returns (bp flat uint16 of bp_size
-    entries, score int32 (n,)). `bp_size` and `max_w` (the widest job's
-    short side + 1) are passed in so a CUDA launch never reads the table
-    back from the card."""
+    entries, score int32 (n,)). `bp_size` and the launch `plan` (from the
+    jobs' shapes, `launch_sizes`) are passed in so a CUDA launch never reads
+    the table back from the card."""
     if table.device.type == "cpu":
         return gotoh_fill_plain(table, seqs)
     if table.device.type != "cuda":
@@ -132,18 +222,18 @@ def gotoh_fill(table: torch.Tensor, seqs: torch.Tensor, bp_size: int,
         raise ValueError(f"table must be (n, {N_COLS}), not {tuple(table.shape)}")
     _check_cuda("table", table, torch.int32, dev)
     _check_cuda("seqs", seqs, torch.int32, dev)
-    lib = _lib()
-    stride = lib.gotoh_scratch_rows() * max_w
     bp = torch.zeros(bp_size, dtype=torch.int16, device=dev).view(torch.uint16)
     score = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(n * stride, dtype=torch.int32, device=dev)
     if n == 0:
         return bp, score
+    lib = _lib()
+    blocks = _to_device(torch.from_numpy(plan.blocks), dev)
     with torch.cuda.device(dev):
         err = lib.gotoh_fill_launch(
             table.data_ptr(), seqs.data_ptr(), bp.data_ptr(),
-            score.data_ptr(), scratch.data_ptr(), stride, n, FILL_THREADS,
-            torch.cuda.current_stream(dev).cuda_stream)
+            score.data_ptr(), blocks.data_ptr(), len(plan.blocks),
+            plan.cluster, plan.lanes_per_thread, plan.threads, plan.stage,
+            plan.smem, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gotoh_fill")
     FILL_LAUNCHES += 1
     return bp, score
@@ -178,19 +268,16 @@ def gotoh_traceback(bp: torch.Tensor, score: torch.Tensor,
 
 
 def launch_sizes(jobs):
-    """(bp_size, max_w, cap) of one launch over `jobs`."""
-    if not jobs:
-        return 0, 1, 0
+    """(bp_size, fill plan, cap) of one launch over `jobs`."""
     lens = [(len(s1), len(s2)) for s1, s2, _, _ in jobs]
-    return (sum(_bp_entries(a, b) for a, b in lens),
-            max(min(a, b) for a, b in lens) + 1,
-            max(a + b for a, b in lens))
+    return (sum(_bp_entries(a, b) for a, b in lens), fill_plan(lens),
+            max((a + b for a, b in lens), default=0))
 
 
 def gotoh_fill_tb(table: torch.Tensor, seqs: torch.Tensor, bp_size: int,
-                  max_w: int, cap: int) -> torch.Tensor:
+                  plan: FillPlan, cap: int) -> torch.Tensor:
     """Fill then traceback, on the tensors' device and stream."""
-    bp, score = gotoh_fill(table, seqs, bp_size, max_w)
+    bp, score = gotoh_fill(table, seqs, bp_size, plan)
     return gotoh_traceback(bp, score, table, cap)
 
 

@@ -10,9 +10,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    sm_90a, one nvcc process per source, all started together;
 3. the Gotoh kernels against their plain PyTorch versions on a bag of jobs
    covering npw 1-3, both lane orientations, swap_pref both, more than 8
-   jobs in one launch, the 4356 x 3330 gap and short sides over 4096:
-   bit-equal backpointers, scores and traceback rows (tolerance: exact,
-   integer DP);
+   jobs in one launch, the fill's edge widths (short sides 0-5, 31-33,
+   63/65, 127-129, 255-257), jobs split over a cluster beside jobs of one
+   block, the 4356 x 3330 gap, short sides over 4096 and penalties large
+   enough for the fill's exact (unscaled) arithmetic: bit-equal
+   backpointers, scores and traceback rows (tolerance: exact, integer DP);
 3b. the DAG x DAG kernels against their plain versions on a bag covering
    in-degree up to 4 and span up to 32 on both sides, npw 1-3, several
    sources and sinks, walks that leave through the boundary row, the
@@ -38,6 +40,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and host `po` time beside the first run's;
 6. the single-problem entry on a pair.fasta-sized gap (4356 x 3330), timed
    against its plain version;
+6b. the Gotoh fill alone on that gap and on narrower ones of the same
+   length, each with one block (C = 1) and split over a cluster (C = 8),
+   bit-equal to the plain fill, with the time per diagonal step: where the
+   two cross sets gotoh_cuda.CLUSTER_MIN_LANES;
+7. the device tier against host `po` below `device_min_cells`: pair.fasta
+   again with the threshold at 10,000 cells (the same CIGAR); the chain
+   gaps of 10,000 to 160,000 cells it dispatched are aligned by host `po`
+   and by one fill + traceback dispatch on the card, both timed;
 and at the end neither jax nor any module of the JAX package may be in the
 process. Each path runs with the launch counters set to 0 just before it
 and read just after. The last three lines of standard output are the
@@ -140,23 +150,42 @@ def wall_ms(fn):
 
 def make_bag(rng, params):
     """Jobs shaped like the pairwise path's device tier, plus the row-kernel
-    regime (short side > 4096) and every option of the recurrence."""
+    regime (short side > 4096), every option of the recurrence and the
+    fill's edge widths."""
     import numpy as np
+    from centrolign_tpu_torch.ops.align_params import AlignmentParams
+    from centrolign_tpu_torch.ops.gotoh_cuda import CLUSTER_MIN_LANES
 
-    def job(L1, L2, swp, npw):
-        s1 = rng.integers(0, 4, L1).astype(np.int32)
+    def job(L1, L2, swp, npw, gen=rng):
+        s1 = gen.integers(0, 4, L1).astype(np.int32)
         s2 = s1[:min(L1, L2)].copy()
         if L2 > len(s2):
             s2 = np.concatenate(
-                [s2, rng.integers(0, 4, L2 - len(s2)).astype(np.int32)])
-        idx = rng.integers(0, L2, max(1, L2 // 10))
-        s2[idx] = (s2[idx] + 1) % 4
+                [s2, gen.integers(0, 4, L2 - len(s2)).astype(np.int32)])
+        if L2:
+            idx = gen.integers(0, L2, max(1, L2 // 10))
+            s2[idx] = (s2[idx] + 1) % 4
         return (s1, s2, swp, params.truncated(npw))
 
     bag = [job(int(rng.integers(141, 700)), int(rng.integers(141, 700)),
                bool(k % 2), 1 + k % 3) for k in range(12)]
     bag += [job(4356, 3330, False, 3), job(3330, 4356, True, 2),
             job(4500, 5200, False, 3), job(5300, 4200, True, 2)]
+    # the fill's edges, from a generator of their own: short sides around a
+    # thread's strip and a warp's lanes (32 R, R = 1, 2, 4 and 8), and
+    # just over the cluster threshold, in both orientations
+    gen = np.random.default_rng(3)
+    for k, short in enumerate((0, 1, 2, 3, 4, 5, 31, 32, 33, 63, 65, 127,
+                               128, 129, 255, 256, 257,
+                               CLUSTER_MIN_LANES + 1)):
+        long = short + int(gen.integers(0, 300))
+        swp, npw = bool(k % 2), 1 + k % 3
+        bag.append(job(short, long, swp, npw, gen) if k % 4 < 2
+                   else job(long + 1, short, swp, npw, gen))
+    # penalties whose values may leave +-2^20: the fill's exact path
+    s1, s2, _, _ = job(500, 460, False, 3, gen)
+    bag.append((s1, s2, True, AlignmentParams(
+        2000, 8000, (6000, 80000, 250000), (3000, 500, 100))))
     return bag
 
 
@@ -184,9 +213,9 @@ def compare_gotoh(jobs, device, reps):
 
     table = gc.params_table(jobs).to(device)
     seqs = gc.pack_seqs(jobs).to(device)
-    bp_size, max_w, cap = gc.launch_sizes(jobs)
+    bp_size, plan, cap = gc.launch_sizes(jobs)
     (bp_k, sc_k), fill_ms = timed(
-        lambda: gc.gotoh_fill(table, seqs, bp_size, max_w), reps)
+        lambda: gc.gotoh_fill(table, seqs, bp_size, plan), reps)
     rows_k, tb_ms = timed(
         lambda: gc.gotoh_traceback(bp_k, sc_k, table, cap), reps)
     (bp_p, sc_p), fill_plain_ms = wall_ms(
@@ -485,6 +514,7 @@ def main() -> int:
     from centrolign_tpu_torch import stitcher as stitcher_mod
     from centrolign_tpu_torch.device import device_kind
     from centrolign_tpu_torch.ops import _build
+    from centrolign_tpu_torch.ops import gotoh as plain_gotoh
     from centrolign_tpu_torch.ops import gotoh_cuda as gc
     from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
     from centrolign_tpu_torch.ops.align_params import AlignmentParams
@@ -689,6 +719,102 @@ def main() -> int:
     print(f"gotoh_align_device on pair.fasta's first 4356 x 3330 bases: "
           f"score {score}, {len(aln)} pairs, bit-equal; kernel {ms:.3f} ms, "
           f"plain {pms:.1f} ms ({card})", flush=True)
+
+    # 6b. the fill alone, one block against a cluster, on the 4356 x 3330
+    # gap and on narrower gaps of the same length
+    seq_a = job[0]
+    sweep = []
+    for short in (3330, 2048, 1536, 1024, 768, 512, 256, 128, 64):
+        gap = [(seq_a, encode_seq(b[:short]).astype(np.int32), False, params)]
+        shapes = [(len(seq_a), short)]
+        gtab = gc.params_table(gap).to(device)
+        gseq = gc.pack_seqs(gap).to(device)
+        bp_size = gc.launch_sizes(gap)[0]
+        res = {}
+        for C, min_lanes in ((1, 10 ** 9), (gc.CLUSTER, 0)):
+            plan = gc.fill_plan(shapes, min_lanes)
+            require(plan.cluster == C, f"plan for C = {C} has {plan.cluster}")
+            (bp_c, sc_c), ms = timed(
+                lambda: gc.gotoh_fill(gtab, gseq, bp_size, plan), 5)
+            nwj, G = int(plan.blocks[0, 3]), int(plan.blocks[0, 2])
+            # one step per diagonal, plus the warps' lag behind each other
+            steps = (len(seq_a) + short + 1
+                     + (G * nwj - 1) * (gc.FILL_CHUNK - 1))
+            res[C] = (bp_c.view(torch.int16), sc_c, ms, steps)
+        require(torch.equal(res[1][0], res[gc.CLUSTER][0])
+                and torch.equal(res[1][1], res[gc.CLUSTER][1]),
+                f"the fill of 4356 x {short} differs between C = 1 and C = "
+                f"{gc.CLUSTER}")
+        if short == 3330:
+            bp_p, sc_p = plain_gotoh.gotoh_fill_plain(gtab, gseq)
+            require(torch.equal(res[1][0], bp_p.view(torch.int16))
+                    and torch.equal(res[1][1], sc_p),
+                    "the fill of 4356 x 3330 differs from the plain fill")
+        w = Work()
+        w.add((len(seq_a) + 1) * (short + 1) * (3 + 18 * params.num_pw),
+              64 + 4 * (len(seq_a) + short)
+              + 2 * (len(seq_a) + short + 1) * (short + 1) + 4)
+        bound = w.bound()[0]
+        sweep.append((short, res[1][2], res[gc.CLUSTER][2]))
+        print(f"fill 4356 x {short}: bit-equal at C = 1 and C = "
+              f"{gc.CLUSTER}; C = 1 {res[1][2]:.3f} ms over {res[1][3]} "
+              f"diagonal steps ({res[1][2] / res[1][3] * 1e3:.3f} us a step, "
+              f"{bound / res[1][2]:.2%} of the bound); C = {gc.CLUSTER} "
+              f"{res[gc.CLUSTER][2]:.3f} ms over {res[gc.CLUSTER][3]} steps "
+              f"({res[gc.CLUSTER][2] / res[gc.CLUSTER][3] * 1e3:.3f} us a "
+              f"step, {bound / res[gc.CLUSTER][2]:.2%} of the bound); bound "
+              f"{bound:.6f} ms ({card})", flush=True)
+    faster = [s_ for s_, ms1, msc in sweep if msc < ms1]
+    print(f"cluster split faster at short sides {sorted(faster)}; "
+          f"CLUSTER_MIN_LANES = {gc.CLUSTER_MIN_LANES}", flush=True)
+
+    # 7. device tier against host po on the gaps below device_min_cells
+    from centrolign_tpu_torch.graph import BaseGraph
+    from centrolign_tpu_torch.native import popoa_align
+
+    dispatched.clear()
+    stitcher_mod.gotoh_dispatch = recording_dispatch
+    os.environ["CENTROLIGN_TORCH_DEVICE_MIN_CELLS"] = "10000"
+    reset_counts()
+    rc, out, _ = run_cli(["-v", "0", PAIR])
+    os.environ.pop("CENTROLIGN_TORCH_DEVICE_MIN_CELLS")
+    stitcher_mod.gotoh_dispatch = dispatch
+    require(rc == 0, f"cli.main returned {rc} on pair.fasta at 10,000 cells")
+    with open(REF_CIGAR) as f:
+        require(out == f.read(), "pair.fasta CIGAR at a 10,000-cell "
+                "threshold differs from benchdata/ref_pair.cigar.txt")
+    below = [j for jobs in dispatched for j in jobs
+             if len(j[0]) * len(j[1]) < 160_000]
+
+    def chain(seq):
+        g = BaseGraph()
+        ids = g.add_nodes(seq)
+        g.add_edges(ids[:-1], ids[1:])
+        return g
+
+    gc.gotoh_align_batched(below[:1], device)  # warm
+    for lo, hi in ((10_000, 20_000), (20_000, 40_000), (40_000, 80_000),
+                   (80_000, 120_000), (120_000, 160_000)):
+        part = [j for j in below if lo <= len(j[0]) * len(j[1]) < hi]
+        if not part:
+            continue
+        cells = sum((len(s1) + 1) * (len(s2) + 1) for s1, s2, _, _ in part)
+        host_s = 0.0
+        host_scores = []
+        for s1, s2, _, p in part:
+            g1, g2 = chain(s1), chain(s2)
+            t0 = time.perf_counter()
+            _, sc = popoa_align(g1, g2, [0], [0], [len(s1) - 1],
+                                [len(s2) - 1], p)
+            host_s += time.perf_counter() - t0
+            host_scores.append(int(sc))
+        dev, dev_ms = wall_ms(lambda: gc.gotoh_align_batched(part, device))
+        require([int(sc) for _, sc in dev] == host_scores,
+                "device tier and host po disagree on a score")
+        print(f"gaps of {lo}-{hi} cells on pair.fasta: {len(part)} gaps, "
+              f"{cells} cells; host po {host_s * 1e3:.3f} ms "
+              f"({host_s * 1e3 / len(part):.3f} ms a gap); one device "
+              f"dispatch + fetch {dev_ms:.3f} ms ({card})", flush=True)
 
     # the end: no jax, nothing of the JAX package
     leaked = sorted(m for m in sys.modules

@@ -17,6 +17,36 @@ from centrolign_tpu_torch.ops import gotoh_cuda as gc
 from centrolign_tpu_torch.ops.align_params import params_from_arrays
 
 CPU = torch.device("cpu")
+# shared memory a block of an H100 can have
+MAX_SHARED_BYTES = 232448
+
+# the chain jobs benchdata/pair.fasta dispatches (one launch) and those of
+# benchdata/five.fasta + five.nwk (five launches), as (V1, V2)
+PAIR_JOBS = [(437, 437), (401, 401), (436, 436), (426, 426), (1167, 141),
+             (422, 422), (422, 422), (3296, 218), (1217, 191), (420, 420),
+             (2541, 660), (174, 1200), (492, 494), (490, 490), (431, 431),
+             (418, 418), (1255, 229), (1000, 1000), (1640, 614), (335, 1363),
+             (436, 436), (414, 414), (424, 424), (276, 2328), (421, 421),
+             (419, 419), (504, 504), (4356, 3330)]
+FIVE_JOBS = [
+    [(440, 440), (497, 497), (419, 419), (713, 712), (401, 401), (168, 1197),
+     (436, 436), (583, 585), (422, 422), (422, 422), (1428, 1428)],
+    [(439, 439), (450, 450), (420, 420), (490, 490), (431, 431), (418, 418),
+     (436, 436), (338, 1364), (2318, 266), (436, 436), (414, 414), (424, 424),
+     (419, 419), (414, 414)],
+    [(440, 440), (401, 401), (169, 1195), (436, 436), (1194, 168), (422, 422),
+     (298, 1324), (226, 1252), (412, 412), (420, 420), (558, 558), (118, 2170),
+     (490, 490), (431, 431), (418, 418), (436, 436), (1326, 300), (460, 460),
+     (436, 436), (414, 414), (424, 424), (419, 419), (417, 417)],
+    [(498, 498), (419, 419), (614, 617), (436, 436), (422, 422), (439, 439),
+     (419, 419), (461, 461), (420, 420), (490, 490), (431, 431), (418, 418),
+     (436, 436), (614, 614), (242, 1268), (436, 436), (414, 414), (424, 424),
+     (520, 520), (414, 414)],
+    [(419, 419), (401, 401), (436, 436), (422, 422), (877, 877), (412, 412),
+     (461, 461), (420, 420), (480, 480), (490, 490), (431, 431), (418, 418),
+     (436, 436), (460, 460), (436, 436), (414, 414), (424, 424), (419, 419),
+     (520, 520), (414, 414)],
+]
 
 
 def _port(jobs):
@@ -105,7 +135,10 @@ def test_params_table_layout():
     assert seqs.dtype == torch.int32
     assert np.array_equal(seqs.numpy(), np.concatenate(
         [jobs[0][0], jobs[0][1], jobs[1][0], jobs[1][1]]))
-    assert gc.launch_sizes(jobs) == (13 * 6 + 13 * 4, 6, 12)
+    bp_size, plan, cap = gc.launch_sizes(jobs)
+    assert (bp_size, cap) == (13 * 6 + 13 * 4, 12)
+    # one block per job, the most diagonals first
+    assert plan.blocks.tolist() == [[0, 0, 1, 1], [1, 0, 1, 1]]
 
 
 def test_params_table_splits_int64_offset():
@@ -125,3 +158,72 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         gc.gotoh_fill(table, gc.pack_seqs(jobs).to("meta"),
                       *gc.launch_sizes(jobs)[:2])
+
+
+def _edge_shapes():
+    """Short sides at the fill's edges (a strip, a warp's 32 R lanes for
+    R = 1, 2, 4, 8, the cluster threshold), both orientations."""
+    shorts = [0, 1, 2, 31, 32, 33, 63, 65, 127, 129, 255, 257,
+              gc.CLUSTER_MIN_LANES, gc.CLUSTER_MIN_LANES + 1, 4096, 4500]
+    return [(s, s + 37) if k % 2 else (s + 91, s)
+            for k, s in enumerate(shorts)]
+
+
+@pytest.mark.parametrize("shapes", [PAIR_JOBS, *FIVE_JOBS, _edge_shapes(),
+                                    [(4356, 3330)], [(7, 5)] * 200,
+                                    [(5000, 4000)] * 20],
+                         ids=["pair", *(f"five{k}" for k in range(5)),
+                              "edges", "one_wide", "many_small",
+                              "many_wide"])
+@pytest.mark.parametrize("cluster_min_lanes", [gc.CLUSTER_MIN_LANES, 0,
+                                               10 ** 9],
+                         ids=["default", "split_all", "split_none"])
+def test_fill_plan_owns_every_lane_once(shapes, cluster_min_lanes):
+    """The launch plan of csrc/gotoh.cu's fill, replayed as the kernel
+    reads it: every lane of every job is held by exactly one thread, a
+    split job holds a whole cluster of at most 8 blocks in rank order, the
+    launch fits the card's clusters and shared memory, and the jobs with
+    the most diagonals come first."""
+    one_block = max(r * n for r, n in gc.FILL_THREADS.items())
+    if max(min(a, b) + 1 for a, b in shapes) > one_block and \
+            cluster_min_lanes > one_block:
+        # a short side past one block's lanes needs a cluster
+        with pytest.raises(ValueError):
+            gc.fill_plan(shapes, cluster_min_lanes)
+        return
+    plan = gc.fill_plan(shapes, cluster_min_lanes)
+    C, R = plan.cluster, plan.lanes_per_thread
+    assert C in (1, gc.CLUSTER) and C <= 8
+    assert len(plan.blocks) % C == 0
+    assert 32 <= plan.threads <= gc.FILL_THREADS[R]
+    assert plan.smem <= MAX_SHARED_BYTES
+    assert plan.stage == min(max(max(a, b) for a, b in shapes),
+                             gc.STAGE_LABELS)
+    if C > 1 and max(min(a, b) + 1 for a, b in shapes) <= one_block:
+        assert len(plan.blocks) // C <= gc.MAX_CLUSTERS
+    owned = [np.zeros(min(a, b) + 1, int) for a, b in shapes]
+    first_block = {}
+    for b, (job, rank, group, warps) in enumerate(plan.blocks.tolist()):
+        if job < 0:
+            continue
+        assert 1 <= warps and 32 * warps <= plan.threads
+        assert group in (1, C)
+        if group > 1:
+            assert b % C == rank
+        first_block.setdefault(job, b)
+        lo = rank * warps * 32 * R
+        for t in range(32 * warps):
+            owned[job][lo + t * R:lo + (t + 1) * R] += 1
+    assert all((o == 1).all() for o in owned)
+    # split jobs first, then the rest, each by diagonals, most first
+    order = sorted(first_block, key=first_block.get)
+    split = [plan.blocks[first_block[k], 2] > 1 for k in order]
+    assert split == sorted(split, reverse=True)
+    for part in (True, False):
+        diag = [sum(shapes[k]) for k, s_ in zip(order, split) if s_ == part]
+        assert diag == sorted(diag, reverse=True)
+
+
+def test_fill_plan_refuses_a_short_side_past_its_blocks():
+    with pytest.raises(ValueError):
+        gc.fill_plan([(40000, 40000)])

@@ -74,6 +74,12 @@ def test_fill_matches_jax_scan(params, lane_is_i, swap_pref):
     s2 = s1[:V2].copy() if V2 <= V1 else np.concatenate(
         [s1, rng.integers(0, 4, V2 - V1)]).astype(np.int32)
     s2[rng.integers(0, V2, max(1, V2 // 6))] = rng.integers(0, 4)
+    _check_plain_fill(s1, s2, params, swap_pref, lane_is_i)
+
+
+def _check_plain_fill(s1, s2, params, swap_pref, lane_is_i):
+    """The plain fill's backpointers and score against the JAX scan's."""
+    V1, V2 = len(s1), len(s2)
     bp_j, score_j, lii = _jax_fill(s1, s2, params, swap_pref)
     assert lii == lane_is_i
 
@@ -85,6 +91,23 @@ def test_fill_matches_jax_scan(params, lane_is_i, swap_pref):
     assert np.array_equal(bp_t[inside], bp_j[inside])
     assert not bp_t[~inside].any()
     assert int(score_t[0]) == score_j
+
+
+# short sides at the CUDA fill's edges: a thread's strip of R lanes and a
+# warp's 32 R lanes (R = 1, 2, 4) and one either side; the plain fill is
+# the yardstick the kernel is held to there
+@pytest.mark.parametrize("short", [1, 2, 31, 32, 33, 63, 65, 127, 129])
+@pytest.mark.parametrize("lane_is_i", [True, False], ids=["lanes_i", "lanes_j"])
+@pytest.mark.parametrize("swap_pref", [False, True], ids=["pref_I", "pref_D"])
+def test_fill_edge_widths_match_jax_scan(short, lane_is_i, swap_pref):
+    params = PARAMS[0].truncated(1 + short % 3)
+    rng = np.random.default_rng(short * 4 + 2 * lane_is_i + swap_pref)
+    long = short + int(rng.integers(0, 40))
+    V1, V2 = (short, long) if lane_is_i else (long + 1, short)
+    s1 = rng.integers(0, 4, V1).astype(np.int32)
+    s2 = np.resize(s1, V2).astype(np.int32)
+    s2[rng.integers(0, V2, max(1, V2 // 6))] = rng.integers(0, 4)
+    _check_plain_fill(s1, s2, params, swap_pref, lane_is_i)
 
 
 @pytest.mark.parametrize("params", PARAMS,
