@@ -11,7 +11,9 @@
 // gotoh_traceback replaces the lax traceback that follows those fills
 // (_traceback_pack8_on_device, _traceback_batch_on_device /
 // _traceback_bp_on_device) and writes the same (cap+1, 2) rows: row 0 is
-// (count, score), the alignment pairs end at row cap, GAP = -1.
+// (count, score), the alignment pairs end at row cap, GAP = -1. A job's
+// walk reads its backpointers from a ring of rows in shared memory (see
+// gotoh_traceback_kernel).
 //
 // What bounds the fill on an H100. Every cell depends on its left, upper
 // and diagonal neighbours, about 3 + 18 npw int32 operations each. A job
@@ -62,10 +64,19 @@
 // block of a cluster, so a cluster launch packs C small jobs in a cluster
 // and no block waits for a job that is not its own. The plan lists the
 // jobs with the most diagonals first, and splits them only while the
-// launch's clusters fit the card at once. The traceback is a pointer chase
-// of V1 + V2 dependent loads per problem, bounded by memory latency; one
-// thread per problem walks it on the fill's stream, so only the O(L) pairs
-// cross to the host.
+// launch's clusters fit the card at once.
+//
+// The traceback is a chain of up to V1 + V2 dependent steps, each a read
+// of the backpointer at the walk's position, so read from device memory it
+// is bounded by that memory's latency (about 0.2 us a step). Every step
+// lowers the anti-diagonal by 1 or 2 and the lane by 0 or 1, so the walk's
+// next steps lie in a band below it that is known ahead. One block of two
+// warps takes a job: one warp copies the rows of the 96 diagonals below the
+// walk, each as the 97 lanes the walk can still reach there, into a ring in
+// shared memory with cp.async, while the other walks from that ring and
+// waits only for a row not yet landed; each 32 steps'
+// pairs go out in one coalesced store. It runs on the fill's stream, so
+// only the O(L) pairs cross to the host.
 //
 // Per-job parameter row (int32, 16 columns), written by
 // centrolign_tpu_torch/ops/gotoh_cuda.py::params_table:
@@ -617,48 +628,131 @@ __global__ void __launch_bounds__(max_threads(R), 1)
 #undef FILL
 }
 
-__global__ void gotoh_traceback_kernel(const uint16_t* __restrict__ bp,
-                                       const int* __restrict__ score,
-                                       const int* __restrict__ par,
-                                       int* __restrict__ out, int n_jobs,
-                                       int cap) {
-  const int job = blockIdx.x * blockDim.x + threadIdx.x;
-  if (job >= n_jobs) return;
-  const Job jb = load_job(par, job);
-  const int W = (jb.lane_is_i ? jb.V1 : jb.V2) + 1;
-  const uint16_t* bpj = bp + jb.bp_off;
-  int* rows = out + (int64_t)job * (cap + 1) * 2;
+// The traceback's row ring. Every move lowers the anti-diagonal by 1 or 2
+// and the lane by 0 or 1, so when the walk is at (d, lane) and reaches
+// diagonal d' <= d, its lane there lies in [lane - (d - d'), lane]. The
+// rows of the kTbAhead diagonals below the walk sit in a ring in shared
+// memory, each as the lanes [lane - kTbAhead, lane] of the walk's lane when
+// it was copied; in a ring row, backpointer e of the buffer (counted from
+// bp's last 16-byte boundary) sits at column e % kTbCols.
+constexpr int kTbAhead = 96;
+constexpr int kTbRing = 128;   // rows of the ring (a power of 2 > kTbAhead)
+constexpr int kTbCols = 128;   // backpointers a ring row holds (a power of 2)
+// shared memory of one job: the ring, then the walk's position (int64) and
+// the lowest row in the ring that has landed
+constexpr int kTbBytes = kTbRing * kTbCols * 2 + 16;
 
-  int i = jb.V1, j = jb.V2, comp = 0, idx = cap;
-  while (i != 0 || j != 0) {
-    const int b = bpj[(int64_t)(i + j) * W + (jb.lane_is_i ? i : j)];
-    if (comp == 0) {
-      const int code = b & 7;
-      if (code == 0) {
-        rows[2 * idx] = i - 1;
-        rows[2 * idx + 1] = j - 1;
-        --idx;
-        --i;
-        --j;
-        continue;
-      }
-      comp = (code & 1) ? (code + 1) / 2 : -(code / 2);
-    }
-    if (comp > 0) {  // in I[comp-1]: consumes i
-      rows[2 * idx] = i - 1;
-      rows[2 * idx + 1] = -1;
-      if ((b >> (3 + comp - 1)) & 1) comp = 0;
-      --i;
-    } else {  // in D[-comp-1]: consumes j
-      rows[2 * idx] = -1;
-      rows[2 * idx + 1] = j - 1;
-      if ((b >> (6 - comp - 1)) & 1) comp = 0;
-      --j;
-    }
-    --idx;
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(smem_addr(p)),
+               "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];"
+               : "=r"(v) : "r"(smem_addr(p)) : "memory");
+  return v;
+}
+
+// One job a block of two warps. Warp 1 copies rows into the ring: it reads
+// the walk's position, issues by cp.async (one lane an aligned 16-byte
+// chunk) the rows that came within kTbAhead diagonals of it, waits for them
+// and publishes the lowest row that has landed. Warp 0 walks: every lane
+// holds the walk's state and takes the same step, reading the
+// backpointer from the ring; it waits only when the walk reaches a row not
+// yet published. Lane k % 32 of warp 0 keeps step k's pair; every 32 steps
+// the warp stores them in one coalesced store.
+__global__ void __launch_bounds__(64)
+    gotoh_traceback_kernel(const uint16_t* __restrict__ bp,
+                           const int* __restrict__ score,
+                           const int* __restrict__ par, int* __restrict__ out,
+                           int cap) {
+  extern __shared__ uint16_t tb_smem[];
+  uint16_t* ring = tb_smem;
+  long long* pos = (long long*)(tb_smem + kTbRing * kTbCols);
+  int* landed = (int*)(pos + 1);
+  const int job = blockIdx.x, warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const Job jb = load_job(par, job);
+  const bool lii = jb.lane_is_i;
+  const int W = (lii ? jb.V1 : jb.V2) + 1;
+  const uint16_t* bpj = bp + jb.bp_off;
+  // backpointers are counted from the 16-byte boundary at or before bpj
+  const char* base16 = (const char*)((uintptr_t)bpj & ~(uintptr_t)15);
+  const int e0 = (int)(((uintptr_t)bpj & 15) >> 1);
+  if (threadIdx.x == 0) {
+    *pos = ((long long)(jb.V1 + jb.V2) << 32) | (lii ? jb.V1 : jb.V2);
+    *landed = jb.V1 + jb.V2 + 1;
   }
-  rows[0] = cap - idx;
-  rows[1] = score[job];
+  __syncthreads();
+
+  if (warp == 1) {
+    // the copier: rows below `low` are not issued yet
+    int low = jb.V1 + jb.V2 + 1;
+    for (;;) {
+      const long long p = *(volatile long long*)pos;
+      if (p < 0) break;  // the walk has ended
+      const int d = (int)(p >> 32), lane = (int)(p & 0xffffffff);
+      const int stop = max(0, d - kTbAhead);
+      if (low <= stop) continue;
+      for (int row = low - 1; row >= stop; --row) {
+        const int e = e0 + row * W;
+        const int c0 = (e + max(0, lane - kTbAhead)) >> 3;
+        const int c = c0 + l;
+        if (c <= (e + lane) >> 3)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                           smem_addr(ring + (row & (kTbRing - 1)) * kTbCols +
+                                     ((8 * c) & (kTbCols - 1)))),
+                       "l"(base16 + 16 * (int64_t)c)
+                       : "memory");
+      }
+      asm volatile("cp.async.commit_group;\n\tcp.async.wait_all;" :::
+                   "memory");
+      __syncwarp();
+      low = stop;
+      if (l == 0) {
+        asm volatile("fence.acq_rel.cta;" ::: "memory");
+        st_release(landed, low);
+      }
+      if (low == 0) break;
+    }
+    return;
+  }
+
+  int i = jb.V1, j = jb.V2, comp = 0, k = 0, pa = 0, pb = 0;
+  int d = i + j, e = e0 + d * W + (lii ? i : j), ready = d + 1;
+  int2* rows = (int2*)(out + (int64_t)job * (cap + 1) * 2);
+  while (d != 0) {
+    if (d < ready) {  // a row not published yet: wait for the copier
+      do ready = ld_acquire(landed);
+      while (d < ready);
+    }
+    const int b = ring[((d & (kTbRing - 1)) * kTbCols) | (e & (kTbCols - 1))];
+    const int code = b & 7;
+    const int c = comp != 0 ? comp
+                  : (code & 1) ? (code + 1) >> 1 : -(code >> 1);
+    const bool diag = c == 0, ins = c > 0;
+    const bool opened = (b >> (ins ? 2 + c : 5 - c)) & 1;
+    const int a1 = diag || ins ? i - 1 : -1;
+    const int a2 = diag || !ins ? j - 1 : -1;
+    i -= diag || ins;
+    j -= diag || !ins;
+    d -= diag ? 2 : 1;
+    e -= diag ? 2 * W + 1 : W + (ins == lii);
+    comp = diag || opened ? 0 : c;
+    if (l == 0)
+      *(volatile long long*)pos = ((long long)d << 32) | (lii ? i : j);
+    if ((k & 31) == l) {
+      pa = a1;
+      pb = a2;
+    }
+    if ((k & 31) == 31) rows[cap - k + 31 - l] = make_int2(pa, pb);
+    ++k;
+  }
+  if (l < (k & 31)) rows[cap - (k & ~31) - l] = make_int2(pa, pb);
+  if (l == 0) {
+    rows[0] = make_int2(k, score[job]);
+    *(volatile long long*)pos = -1;  // the copier may stop
+  }
 }
 
 }  // namespace
@@ -710,11 +804,17 @@ extern "C" int gotoh_fill_launch(const int* par, const int* seqs, uint16_t* bp,
   return (int)cudaGetLastError();
 }
 
+// The traceback over `n_jobs` jobs, one block of two warps each, with its
+// row ring in dynamic shared memory. (`threads` must be 64.)
 extern "C" int gotoh_traceback_launch(const uint16_t* bp, const int* score,
                                       const int* par, int* out, int n_jobs,
                                       int cap, int threads, void* stream) {
-  const int blocks = (n_jobs + threads - 1) / threads;
-  gotoh_traceback_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      bp, score, par, out, n_jobs, cap);
+  if (threads != 64) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gotoh_traceback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTbBytes);
+  if (err != cudaSuccess) return (int)err;
+  gotoh_traceback_kernel<<<n_jobs, threads, kTbBytes,
+                           (cudaStream_t)stream>>>(bp, score, par, out, cap);
   return (int)cudaGetLastError();
 }

@@ -29,19 +29,44 @@
 // term read is >= MININF - 2 (go + ge) - ge; the wrapper refuses gap
 // penalties of 2^28 or more.
 //
-// What bounds them on an H100: as for the Gotoh fill (gotoh.cu), the
-// fill is a wavefront with a block-wide barrier per diagonal, so a launch
-// costs about its largest job's diagonal count times one step's latency;
-// per cell it does a few dozen int32 compares and adds, far from any
-// limit. The design: one block per job; threads over lanes r1 of the
-// diagonal's in-matrix cells; the state of the last R = max(S1, S2) + 1
-// diagonals of M, PM, PMk1, I[npw], D[npw] (R * V1 * (3 + 2 npw) int32)
-// lives in shared memory where the launch's dynamic shared memory holds
-// it, else in a per-job global scratch (the table says which); the
-// predecessor slots are unrolled to K_MAX so their values stay in
-// registers. The traceback is a pointer chase of at most V1 + V2
-// dependent loads, bounded by memory latency; its rows for the whole
-// launch cross to the host in one copy.
+// What bounds the fill on an H100. A job is one block on one SM, and its
+// diagonals are dependent steps, so a launch costs about its slowest job's
+// diagonals times one step. A step costs the larger of the issue time of
+// its cells (a cell is several hundred instructions, more with more
+// predecessor slots, and an SM issues 128 thread-instructions a clock) and
+// one cell's dependent chain plus a barrier. five.fasta's widest jobs (558
+// and 559 lanes) are bound by issue: chip_smoke.py measures each of their
+// launches at about 1.1 us a diagonal step on an H100 80GB HBM3 at 700 W
+// (PERF.md). The next gain is to split a wide job over several SMs.
+// The traceback is a pointer chase of at most V1 + V2 dependent loads,
+// bounded by memory latency; its rows for the whole launch cross to the
+// host in one copy.
+//
+// The fill's design. Lanes run along the job's short side, the "lane side"
+// (graph 1 when V1 <= V2, else graph 2); the other side's position of a
+// lane's cell on diagonal d is y = d - x. Each thread owns R lanes (x, x +
+// the job's threads, ...) for the whole job and holds each lane's node in
+// registers: label, boundary M, source flag, sink index, graph 1's bdiag
+// and bdiag_k1, and its K deltas as the bytes of one word. The other side's
+// nodes are staged once per job as one int4 record each (graph 1's bdiag
+// beside them), and at R <= 2 a lane's next record is read a step ahead.
+// The state of the last diagonals lives in rings indexed by lane, each plane
+// only as deep as it is read: M at max(S1, S2) + 1 diagonals, PM, PMk1 and
+// D[npw] (read at prev2) at S2 + 1, I[npw] (read at prev1) at S1 + 1; the
+// slot of diagonal d - s comes from one rotating index per depth, moved once
+// a diagonal. A predecessor along the lane side is another lane of the
+// ring; along the other side it is the thread's own lane. Records and rings
+// sit in shared memory where the launch's dynamic shared memory holds them
+// (read and written by 32-bit shared addresses), else in the job's slice of
+// global scratch in the same layout, where a warp's ring reads fall on
+// consecutive lanes. A cell reads every ring value it needs first, without
+// a branch (a slot with no predecessor reads a valid slot and discards the
+// value), through 1, 2 or 4 predecessor slots, the fewest that hold the
+// job's in-degrees. Maxima go through DPX (__vimax3_s32, __vibmax_s32)
+// where the tie rules allow. One barrier a diagonal: a named barrier over
+// the warps that hold lanes, __syncwarp when one warp does. The cell's
+// arithmetic and tie rules, written in (r1, r2) terms, are those of
+// _fill_scan whichever side carries the lanes.
 //
 // Table row (int32, 24 columns) and data layout: see
 // centrolign_tpu_torch/ops/popoa_dag.py (COL_*, G1_*, G2_*).
@@ -55,7 +80,13 @@ constexpr int kNeg = -(1 << 30);   // MININF
 constexpr int kNegHalf = kNeg / 2;
 constexpr int kCols = 24;
 constexpr int kMaxPw = 3;
-constexpr int kMaxK = 4;
+// a node's info word: sink index + 1 in bits 0-26, bdiag_k1 in bits 27-29
+// (graph 1), is-source in bit 30
+constexpr int kSinkMask = (1 << 27) - 1;
+// threads a block of the fill may have at R lanes a thread
+__host__ __device__ constexpr int max_threads(int R) {
+  return R == 8 ? 1024 : R == 4 ? 640 : 512;
+}
 
 enum Col {
   kV1 = 0, kV2, kK1, kK2, kR, kNpw, kMatch, kMismatch,
@@ -69,7 +100,7 @@ enum G2Row { kLab2 = 0, kSrc2, kBrowM, kSink2, kDelta2 };
 enum Exit { kExitRow = 1, kExitCol, kExitCorner, kExitNoAlignment, kExitLost };
 
 struct DagJob {
-  int V1, V2, K1, K2, R, npw, match, mismatch;
+  int V1, V2, K1, K2, npw, match, mismatch;
   int go[kMaxPw], ge[kMaxPw];
   int g1, g2, n1, n2, sinkpos, sinkm;
   int64_t bp_off, scratch_off;
@@ -82,7 +113,6 @@ __device__ DagJob load_job(const int* __restrict__ table, int job) {
   j.V2 = p[kV2];
   j.K1 = p[kK1];
   j.K2 = p[kK2];
-  j.R = p[kR];
   j.npw = p[kNpw];
   j.match = p[kMatch];
   j.mismatch = p[kMismatch];
@@ -112,174 +142,391 @@ __device__ __forceinline__ int64_t diag_offset(int64_t V1, int64_t V2,
   return a - t * (t + 1) / 2;
 }
 
-__global__ void popoa_dag_fill_kernel(const int* __restrict__ table,
-                                      const int* __restrict__ data,
-                                      int* __restrict__ bp,
-                                      int* __restrict__ sinkm,
-                                      int* __restrict__ scratch) {
-  extern __shared__ int smem[];
-  const DagJob jb = load_job(table, blockIdx.x);
-  const int V1 = jb.V1, V2 = jb.V2, R = jb.R, K1 = jb.K1, K2 = jb.K2;
-  const int npw = jb.npw;
-  int* ring = jb.scratch_off < 0 ? smem : scratch + jb.scratch_off;
-  const int plane = R * V1;  // one state array's ring
-  int* Mr = ring;
-  int* PMr = ring + plane;
-  int* PMk1r = ring + 2 * plane;
-  int* Ir = ring + 3 * plane;          // + pw * plane
-  int* Dr = ring + (3 + npw) * plane;  // + pw * plane
-  const int* g1 = data + jb.g1;
-  const int* g2 = data + jb.g2;
-  int* bpj = bp + jb.bp_off;
+// Node p of a graph block g (V nodes, K delta rows) as a record: (label,
+// boundary M, info word, deltas as bytes); graph 1 also gives its bdiag.
+// `span` takes the maximum of the node's deltas.
+template <bool G1>
+__device__ int4 node_record(const int* __restrict__ g, int V, int K, int p,
+                            int* bdiag, int* span) {
+  int deltas = 0;
+  for (int k = 0; k < K; ++k) {
+    const int dl = g[((G1 ? (int)kDelta1 : (int)kDelta2) + k) * V + p];
+    deltas |= dl << (8 * k);
+    *span = max(*span, dl);
+  }
+  const int src = g[(G1 ? (int)kSrc1 : (int)kSrc2) * V + p] == 1;
+  const int sink = g[(G1 ? (int)kSink1 : (int)kSink2) * V + p];
+  const int k1 = G1 ? g[kBdiagK1 * V + p] : 0;
+  *bdiag = G1 ? g[kBdiag * V + p] : 0;
+  return make_int4(g[(G1 ? (int)kLab1 : (int)kLab2) * V + p],
+                   g[(G1 ? (int)kBcolM : (int)kBrowM) * V + p],
+                   (sink + 1) | (k1 << 27) | (src << 30), deltas);
+}
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// slot of diagonal d - s in a ring of depth P whose diagonal d is slot c
+__device__ __forceinline__ int ring_slot(int c, int s, int P) {
+  const int t = c - s;
+  return t < 0 ? t + P : t;
+}
+
+__device__ __forceinline__ int delta_of(int deltas, int k) {
+  return (int)__byte_perm((unsigned)deltas, 0u, 0x4440u + k);
+}
+
+// Where a job's state lives, as int offsets from its start: in shared
+// memory, read and written by 32-bit shared addresses, or in global
+// scratch.
+struct SharedState {
+  uint32_t base;  // byte address of the state in shared memory
+  __device__ __forceinline__ int ld(int i) const {
+    int v;
+    asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(base + 4 * i));
+    return v;
+  }
+  __device__ __forceinline__ int4 ld4(int i) const {
+    int4 v;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(base + 4 * i));
+    return v;
+  }
+  __device__ __forceinline__ void st(int i, int v) const {
+    asm volatile("st.shared.b32 [%0], %1;" ::"r"(base + 4 * i), "r"(v)
+                 : "memory");
+  }
+  __device__ __forceinline__ void st4(int i, int4 v) const {
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
+                     base + 4 * i), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                 : "memory");
+  }
+};
+
+struct GlobalState {
+  int* base;
+  __device__ __forceinline__ int ld(int i) const { return base[i]; }
+  __device__ __forceinline__ int4 ld4(int i) const {
+    return *(const int4*)(base + i);
+  }
+  __device__ __forceinline__ void st(int i, int v) const { base[i] = v; }
+  __device__ __forceinline__ void st4(int i, int4 v) const {
+    *(int4*)(base + i) = v;
+  }
+};
+
+// The rings of one job, as offsets in its state: M (depth dm), PM and
+// PMk1 (depth d2), D[npw] (depth d2), I[npw] (depth d1), each row `L`
+// lanes; `c*` the slot of the current diagonal in each depth.
+struct Rings {
+  int oM, oPM, oPK, oD, oI;  // oD + pw * planeD, oI + pw * planeI
+  int L, dm, d1, d2, planeD, planeI, cM, c1, c2;
+  int pw_off[kMaxPw];  // the plane a piece reads: its own, or 0 past npw
+};
+
+// One cell (r1, r2) on the current diagonal, at lane x: every ring value it
+// reads is gathered first (the diagonals before), then the recurrence of
+// _fill_scan, then the cell's state goes to the current diagonal's slots.
+// n1 / n2: graph 1's and graph 2's node records, bdiag graph 1's. KC: the
+// slots written out (K1, K2 <= KC); a slot past a node's in-degree has
+// delta 0 and reads nothing.
+template <bool LANE1, int KC, class State>
+__device__ __forceinline__ void cell(const DagJob& jb, const Rings& g,
+                                     const State& st, int x, const int4& n1,
+                                     const int4& n2, int bdiag, int* bp_at,
+                                     int* __restrict__ sinkm) {
+  const int K1 = jb.K1, K2 = jb.K2, npw = jb.npw, L = g.L;
+  const bool src1 = (n1.z >> 30) & 1, src2 = (n2.z >> 30) & 1;
+  const int bcolM = n1.y, browM = n2.y;
+  const int score = n1.x == n2.x ? jb.match : -jb.mismatch;
+
+  // gather: M at prev1 and prev2, PM / PMk1 / D at prev2, I at prev1.
+  // A slot without a predecessor (delta 0) reads the current diagonal's
+  // slot and a piece past npw reads piece 0: every read is in the state,
+  // and each value so read is discarded where it is used.
+  int d1[KC], d2[KC], m1[KC], m2[KC], cv[KC], ck[KC];
+  int ie[kMaxPw][KC], de[kMaxPw][KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    d1[k] = delta_of(n1.w, k);
+    d2[k] = delta_of(n2.w, k);
+    const int l1 = LANE1 ? x - d1[k] : x;
+    const int l2 = LANE1 ? x : x - d2[k];
+    const int aI1 = g.oI + ring_slot(g.c1, d1[k], g.d1) * L + l1;
+    const int a2 = ring_slot(g.c2, d2[k], g.d2) * L + l2;
+    m1[k] = st.ld(g.oM + ring_slot(g.cM, d1[k], g.dm) * L + l1);
+    m2[k] = st.ld(g.oM + ring_slot(g.cM, d2[k], g.dm) * L + l2);
+    const int pm = st.ld(g.oPM + a2);
+    cv[k] = d2[k] > 0 ? pm : kNeg;
+    ck[k] = st.ld(g.oPK + a2);
+#pragma unroll
+    for (int pw = 0; pw < kMaxPw; ++pw) {
+      ie[pw][k] = st.ld(aI1 + g.pw_off[pw] * g.planeI);
+      de[pw][k] = st.ld(g.oD + a2 + g.pw_off[pw] * g.planeD);
+    }
+  }
+
+  // PM: column max over prev1 (+ the boundary row), last-wins argmax
+  int PM = kNeg, PMk1 = 0;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    bool ge;
+    const int mx = __vibmax_s32(m1[k], PM, &ge);
+    const bool take = d1[k] > 0;
+    PM = take ? mx : PM;
+    PMk1 = take && ge ? k : PMk1;
+  }
+  if (src1 && browM >= PM) {
+    PM = browM;
+    PMk1 = K1;
+  }
+
+  // diagonal: Q over the prev2 columns of PM (+ the boundary column for
+  // source2 lanes); the source-pair corner wins only strictly
+  const int cvB = src2 ? bdiag : kNeg;
+  const int ckB = (n1.z >> 27) & 7;
+  int Qmax = cvB;
+#pragma unroll
+  for (int k = 0; k < KC; k += 2)
+    Qmax = k + 1 < KC ? __vimax3_s32(Qmax, cv[k], cv[k + 1])
+                      : max(Qmax, cv[k]);
+  int k1s = 0;
+#pragma unroll
+  for (int k = 0; k < KC; ++k)
+    k1s = d2[k] > 0 && cv[k] == Qmax ? max(k1s, ck[k]) : k1s;
+  k1s = cvB == Qmax ? max(k1s, ckB) : k1s;
+  // first k2 in scan order: real slots ascending, the boundary last
+  int k2s = (cvB == Qmax && ckB == k1s) ? K2 : 0;
+#pragma unroll
+  for (int k = KC - 1; k >= 0; --k)
+    k2s = d2[k] > 0 && cv[k] == Qmax && ck[k] == k1s ? k : k2s;
+  const bool corner_wins = src1 && src2 && 0 > Qmax;
+  const int Qeff = corner_wins ? 0 : Qmax;
+  k1s = corner_wins ? K1 : k1s;
+  k2s = corner_wins ? K2 : k2s;
+  int Mnew = Qeff > kNegHalf ? Qeff + score : kNeg;
+
+  // gap pieces: value, then the choice digit (boundary open seeds it;
+  // slots descending, extend then open, so the first adjacency slot wins
+  // and open is preferred at that slot); a piece past npw changes nothing
+  int Iv[kMaxPw], Dv[kMaxPw];
+  int ipack = 0, dpack = 0;
+#pragma unroll
+  for (int pw = 0; pw < kMaxPw; ++pw) {
+    const bool live = pw < npw;
+    const int ge = jb.ge[pw], gpen = jb.go[pw] + ge;
+    int oI[KC], eI[KC], oD[KC], eD[KC];
+
+    const int ib = src1 ? browM - gpen : kNeg;
+    int Inew = ib;
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const bool v = d1[k] > 0;
+      oI[k] = v ? m1[k] - gpen : kNeg;
+      eI[k] = v ? ie[pw][k] - ge : kNeg;
+      Inew = k < K1 ? __vimax3_s32(Inew, oI[k], eI[k]) : Inew;
+    }
+    int ich = ib == Inew ? K1 + 5 : 0;
+#pragma unroll
+    for (int k = KC - 1; k >= 0; --k) {
+      ich = k < K1 && eI[k] == Inew ? k : ich;
+      ich = k < K1 && oI[k] == Inew ? k + 5 : ich;
+    }
+
+    // the boundary-column open is guarded (popoa_ref: only when real)
+    const int db = src2 && bcolM > kNegHalf ? bcolM - gpen : kNeg;
+    int Dnew = db;
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const bool v = d2[k] > 0;
+      oD[k] = v ? m2[k] - gpen : kNeg;
+      eD[k] = v ? de[pw][k] - ge : kNeg;
+      Dnew = k < K2 ? __vimax3_s32(Dnew, oD[k], eD[k]) : Dnew;
+    }
+    int dch = db == Dnew ? K2 + 5 : 0;
+#pragma unroll
+    for (int k = KC - 1; k >= 0; --k) {
+      dch = k < K2 && eD[k] == Dnew ? k : dch;
+      dch = k < K2 && oD[k] == Dnew ? k + 5 : dch;
+    }
+
+    Mnew = live ? __vimax3_s32(Mnew, Inew, Dnew) : Mnew;
+    Iv[pw] = Inew;
+    Dv[pw] = Dnew;
+    constexpr int kDigit[kMaxPw] = {1, 10, 100};
+    ipack += live ? ich * kDigit[pw] : 0;
+    dpack += live ? dch * kDigit[pw] : 0;
+  }
+  int code = 0;
+#pragma unroll
+  for (int pw = kMaxPw - 1; pw >= 0; --pw) {
+    const bool live = pw < npw;
+    code = live && Dv[pw] == Mnew ? 2 * pw + 2 : code;
+    code = live && Iv[pw] == Mnew ? 2 * pw + 1 : code;
+  }
+
+  st.st(g.oM + g.cM * L + x, Mnew);
+  st.st(g.oPM + g.c2 * L + x, PM);
+  st.st(g.oPK + g.c2 * L + x, PMk1);
+#pragma unroll
+  for (int pw = 0; pw < kMaxPw; ++pw) {
+    if (pw < npw) {
+      st.st(g.oI + pw * g.planeI + g.c1 * L + x, Iv[pw]);
+      st.st(g.oD + pw * g.planeD + g.c2 * L + x, Dv[pw]);
+    }
+  }
+  *bp_at = code + 7 * (k1s + 5 * k2s) + (ipack << 8) + (dpack << 18);
+  const int s1 = (n1.z & kSinkMask) - 1, s2 = (n2.z & kSinkMask) - 1;
+  if (s1 >= 0 && s2 >= 0) sinkm[jb.sinkm + s1 * jb.n2 + s2] = Mnew;
+}
+
+// One job. LANE1: the lanes are graph 1's positions (x = r1, y = r2), else
+// graph 2's (x = r2, y = r1). The state `st` holds the other side's
+// records (int4 y at int 4 y, then graph 1's bdiag when graph 1 is the
+// other side), then the rings (layout in
+// ops/popoa_dag_cuda.py::_ring_ints); `spans` is two words of shared
+// memory. KC: the predecessor slots a cell works through (K1, K2 <= KC).
+template <bool LANE1, int R, int KC, class State>
+__device__ void fill_job(const DagJob& jb, const int* __restrict__ data,
+                         int* __restrict__ bp, int* __restrict__ sinkm,
+                         const State& st, int* spans) {
+  const int V1 = jb.V1, V2 = jb.V2, npw = jb.npw;
+  const int VL = LANE1 ? V1 : V2, VO = LANE1 ? V2 : V1;
+  const int KL = LANE1 ? jb.K1 : jb.K2, KO = LANE1 ? jb.K2 : jb.K1;
+  const int* gL = data + (LANE1 ? jb.g1 : jb.g2);
+  const int* gO = data + (LANE1 ? jb.g2 : jb.g1);
+  const int obdiag = 4 * VO;  // graph 1 as the other side only
+  const int oring = obdiag + (LANE1 ? 0 : (VO + 3) / 4 * 4);
+
+  // stage the other side's records; the longest span of each side
+  if (threadIdx.x == 0) spans[0] = spans[1] = 0;
+  __syncthreads();
+  int spanL = 0, spanO = 0;
+  for (int y = threadIdx.x; y < VO; y += blockDim.x) {
+    int bd;
+    st.st4(4 * y, node_record<!LANE1>(gO, VO, KO, y, &bd, &spanO));
+    if (!LANE1) st.st(obdiag + y, bd);
+  }
+  for (int x = threadIdx.x; x < VL; x += blockDim.x)
+    for (int k = 0; k < KL; ++k)
+      spanL = max(spanL, gL[((LANE1 ? (int)kDelta1 : (int)kDelta2) + k) * VL
+                            + x]);
+  spanL = __reduce_max_sync(0xffffffffu, spanL);
+  spanO = __reduce_max_sync(0xffffffffu, spanO);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(&spans[0], spanL);
+    atomicMax(&spans[1], spanO);
+  }
+  __syncthreads();
+  const int S1 = spans[LANE1 ? 0 : 1], S2 = spans[LANE1 ? 1 : 0];
+  // the warps that hold lanes; the others are done
+  const int nthr = 32 * ((VL + 32 * R - 1) / (32 * R));
+  if ((int)threadIdx.x >= nthr) return;
+
+  Rings g;
+  g.L = VL;
+  g.dm = max(S1, S2) + 1;
+  g.d1 = S1 + 1;
+  g.d2 = S2 + 1;
+  g.planeD = g.d2 * VL;
+  g.planeI = g.d1 * VL;
+  g.oM = oring;
+  g.oPM = g.oM + g.dm * VL;
+  g.oPK = g.oPM + g.planeD;
+  g.oD = g.oPK + g.planeD;
+  g.oI = g.oD + npw * g.planeD;
+  g.cM = g.c1 = g.c2 = 0;
+#pragma unroll
+  for (int pw = 0; pw < kMaxPw; ++pw) g.pw_off[pw] = pw < npw ? pw : 0;
+
+  // the lanes' nodes, in registers for the whole job
+  constexpr bool kAhead = R <= 2;  // read the next record a step ahead
+  int4 ln[R], nxt[R];
+  int lbd[R], nbd[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int x = r * nthr + threadIdx.x;
+    int unused = 0;
+    ln[r] = x < VL ? node_record<LANE1>(gL, VL, KL, x, &lbd[r], &unused)
+                   : make_int4(0, 0, 0, 0);
+    nxt[r] = x == 0 ? st.ld4(0) : make_int4(0, 0, 0, 0);
+    nbd[r] = !LANE1 && x == 0 ? st.ld(obdiag) : 0;
+  }
+
+  // diagonal d's cells start at bpd[lo(d)] (ops/popoa_dag.py::diag_offset)
+  int* bpd = bp + jb.bp_off;
   for (int d = 0; d < V1 + V2 - 1; ++d) {
     const int lo = max(0, d - V2 + 1), hi = min(d, V1 - 1);
-    const int64_t doff = diag_offset(V1, V2, d);
-    const int slot = d % R;
-    for (int r1 = lo + threadIdx.x; r1 <= hi; r1 += blockDim.x) {
-      const int r2 = d - r1;
-      const bool src1 = g1[kSrc1 * V1 + r1] == 1;
-      const bool src2 = g2[kSrc2 * V2 + r2] == 1;
-      const int browM = g2[kBrowM * V2 + r2];
-      const int bcolM = g1[kBcolM * V1 + r1];
-      const int score = g1[kLab1 * V1 + r1] == g2[kLab2 * V2 + r2]
-                            ? jb.match : -jb.mismatch;
-      // ring offsets of the predecessors: (r1 - d1, r2) and (r1, r2 - d2)
-      int d1[kMaxK], d2[kMaxK], at1[kMaxK], at2[kMaxK], m1[kMaxK], m2[kMaxK];
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        d1[k] = k < K1 ? g1[(kDelta1 + k) * V1 + r1] : 0;
-        d2[k] = k < K2 ? g2[(kDelta2 + k) * V2 + r2] : 0;
-        at1[k] = d1[k] > 0 ? ((d - d1[k]) % R) * V1 + r1 - d1[k] : 0;
-        at2[k] = d2[k] > 0 ? ((d - d2[k]) % R) * V1 + r1 : 0;
-        m1[k] = d1[k] > 0 ? Mr[at1[k]] : kNeg;
-        m2[k] = d2[k] > 0 ? Mr[at2[k]] : kNeg;
-      }
-
-      // PM: column max over prev1 (+ the boundary row), last-wins argmax
-      int PM = kNeg, PMk1 = 0;
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (d1[k] > 0 && m1[k] >= PM) {
-          PM = m1[k];
-          PMk1 = k;
+    for (int r = 0; r < R; ++r) {
+      const int x = r * nthr + threadIdx.x, y = d - x;
+      int4 o = make_int4(0, 0, 0, 0);
+      int obd = 0;
+      if (kAhead) {
+        o = nxt[r];
+        obd = nbd[r];
+        if (x < VL && y + 1 >= 0 && y + 1 < VO) {
+          nxt[r] = st.ld4(4 * (y + 1));
+          if (!LANE1) nbd[r] = st.ld(obdiag + y + 1);
         }
-      if (src1 && browM >= PM) {
-        PM = browM;
-        PMk1 = K1;
       }
-
-      // diagonal: Q over the prev2 columns of PM (+ the boundary column
-      // for source2 lanes); the source-pair corner wins only strictly
-      int cv[kMaxK], ck[kMaxK];
-      int Qmax = kNeg;
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        cv[k] = d2[k] > 0 ? PMr[at2[k]] : kNeg;
-        ck[k] = d2[k] > 0 ? PMk1r[at2[k]] : kNeg;
-        Qmax = max(Qmax, cv[k]);
+      if (x >= VL || y < 0 || y >= VO) continue;
+      if (!kAhead) {
+        o = st.ld4(4 * y);
+        if (!LANE1) obd = st.ld(obdiag + y);
       }
-      const int cvB = src2 ? g1[kBdiag * V1 + r1] : kNeg;
-      const int ckB = g1[kBdiagK1 * V1 + r1];
-      Qmax = max(Qmax, cvB);
-      int k1s = 0;
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (d2[k] > 0 && cv[k] == Qmax) k1s = max(k1s, ck[k]);
-      if (cvB == Qmax) k1s = max(k1s, ckB);
-      // first k2 in scan order: real slots ascending, the boundary last
-      int k2s = (cvB == Qmax && ckB == k1s) ? K2 : 0;
-#pragma unroll
-      for (int k = kMaxK - 1; k >= 0; --k)
-        if (d2[k] > 0 && cv[k] == Qmax && ck[k] == k1s) k2s = k;
-      const bool corner_wins = src1 && src2 && 0 > Qmax;
-      const int Qeff = corner_wins ? 0 : Qmax;
-      if (corner_wins) {
-        k1s = K1;
-        k2s = K2;
-      }
-      int Mnew = Qeff > kNegHalf ? Qeff + score : kNeg;
-
-      // gap pieces: value, then the choice digit (boundary open seeds it;
-      // slots descending, extend then open, so the first adjacency slot
-      // wins and open is preferred at that slot)
-      int Iv[kMaxPw], Dv[kMaxPw];
-      int ipack = 0, dpack = 0, mul = 1;
-#pragma unroll
-      for (int pw = 0; pw < kMaxPw; ++pw) {
-        Iv[pw] = kNeg;
-        Dv[pw] = kNeg;
-        if (pw >= npw) continue;
-        const int ge = jb.ge[pw], gpen = jb.go[pw] + ge;
-        const int* Ip = Ir + pw * plane;
-        const int* Dp = Dr + pw * plane;
-        int opn[kMaxK], ext[kMaxK];
-
-        const int ib = src1 ? browM - gpen : kNeg;
-        int Inew = ib;
-#pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          opn[k] = d1[k] > 0 ? m1[k] - gpen : kNeg;
-          ext[k] = d1[k] > 0 ? Ip[at1[k]] - ge : kNeg;
-          if (k < K1) Inew = max(Inew, max(opn[k], ext[k]));
-        }
-        int ich = ib == Inew ? K1 + 5 : 0;
-#pragma unroll
-        for (int k = kMaxK - 1; k >= 0; --k) {
-          if (k >= K1) continue;
-          if (ext[k] == Inew) ich = k;
-          if (opn[k] == Inew) ich = k + 5;
-        }
-
-        // the boundary-column open is guarded (popoa_ref: only when real)
-        const int db = src2 && bcolM > kNegHalf ? bcolM - gpen : kNeg;
-        int Dnew = db;
-#pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          opn[k] = d2[k] > 0 ? m2[k] - gpen : kNeg;
-          ext[k] = d2[k] > 0 ? Dp[at2[k]] - ge : kNeg;
-          if (k < K2) Dnew = max(Dnew, max(opn[k], ext[k]));
-        }
-        int dch = db == Dnew ? K2 + 5 : 0;
-#pragma unroll
-        for (int k = kMaxK - 1; k >= 0; --k) {
-          if (k >= K2) continue;
-          if (ext[k] == Dnew) dch = k;
-          if (opn[k] == Dnew) dch = k + 5;
-        }
-
-        Mnew = max(Mnew, max(Inew, Dnew));
-        Iv[pw] = Inew;
-        Dv[pw] = Dnew;
-        ipack += ich * mul;
-        dpack += dch * mul;
-        mul *= 10;
-      }
-      int code = 0;
-#pragma unroll
-      for (int pw = kMaxPw - 1; pw >= 0; --pw) {
-        if (pw >= npw) continue;
-        if (Dv[pw] == Mnew) code = 2 * pw + 2;
-        if (Iv[pw] == Mnew) code = 2 * pw + 1;
-      }
-
-      const int at = slot * V1 + r1;
-      Mr[at] = Mnew;
-      PMr[at] = PM;
-      PMk1r[at] = PMk1;
-#pragma unroll
-      for (int pw = 0; pw < kMaxPw; ++pw) {
-        if (pw >= npw) continue;
-        Ir[pw * plane + at] = Iv[pw];
-        Dr[pw * plane + at] = Dv[pw];
-      }
-      bpj[doff + r1 - lo] =
-          code + 7 * (k1s + 5 * k2s) + (ipack << 8) + (dpack << 18);
-      const int s1 = g1[kSink1 * V1 + r1], s2 = g2[kSink2 * V2 + r2];
-      if (s1 >= 0 && s2 >= 0) sinkm[jb.sinkm + s1 * jb.n2 + s2] = Mnew;
+      cell<LANE1, KC>(jb, g, st, x, LANE1 ? ln[r] : o, LANE1 ? o : ln[r],
+                      LANE1 ? lbd[r] : obd, bpd + ((LANE1 ? x : y) - lo),
+                      sinkm);
     }
-    __syncthreads();
+    bpd += hi - lo + 1;
+    if (nthr == 32)
+      __syncwarp();
+    else
+      asm volatile("bar.sync 1, %0;" ::"r"(nthr) : "memory");
+    g.cM = g.cM + 1 == g.dm ? 0 : g.cM + 1;
+    g.c1 = g.c1 + 1 == g.d1 ? 0 : g.c1 + 1;
+    g.c2 = g.c2 + 1 == g.d2 ? 0 : g.c2 + 1;
   }
+}
+
+// One block per job; R lanes a thread. The job's state is in the dynamic
+// shared memory when its table row says so (scratch offset -1), else at its
+// offset in `scratch`. A cell in shared memory works through 1, 2 or 4
+// predecessor slots, the fewest that hold the job's in-degrees; one in
+// global scratch through 4.
+template <int R>
+__global__ void __launch_bounds__(max_threads(R), 1)
+    popoa_dag_fill_kernel(const int* __restrict__ table,
+                          const int* __restrict__ data, int* __restrict__ bp,
+                          int* __restrict__ sinkm, int* __restrict__ scratch) {
+  extern __shared__ int4 smem[];
+  __shared__ int spans[2];
+  const DagJob jb = load_job(table, blockIdx.x);
+  const bool lane1 = jb.V1 <= jb.V2;
+  if (jb.scratch_off >= 0) {
+    const GlobalState st = {scratch + jb.scratch_off};
+    if (lane1)
+      fill_job<true, R, 4>(jb, data, bp, sinkm, st, spans);
+    else
+      fill_job<false, R, 4>(jb, data, bp, sinkm, st, spans);
+    return;
+  }
+  const SharedState st = {smem_addr(smem)};
+  const int K = max(jb.K1, jb.K2);
+#define FILL(LANE1, KC) fill_job<LANE1, R, KC>(jb, data, bp, sinkm, st, spans)
+  if (lane1) {
+    if (K <= 1) FILL(true, 1);
+    else if (K <= 2) FILL(true, 2);
+    else FILL(true, 4);
+  } else {
+    if (K <= 1) FILL(false, 1);
+    else if (K <= 2) FILL(false, 2);
+    else FILL(false, 4);
+  }
+#undef FILL
 }
 
 __global__ void popoa_dag_traceback_kernel(const int* __restrict__ bp,
@@ -379,17 +626,32 @@ __global__ void popoa_dag_traceback_kernel(const int* __restrict__ bp,
 
 }  // namespace
 
+// The fill over `n_jobs` jobs, one block each: `threads` threads of
+// `lanes_per_thread` lanes (1, 2, 4 or 8) and `smem_bytes` of dynamic shared
+// memory for the jobs whose state is there.
 extern "C" int popoa_dag_fill_launch(const int* table, const int* data,
                                      int* bp, int* sinkm, int* scratch,
-                                     int n_jobs, int threads, int smem_bytes,
+                                     int n_jobs, int threads,
+                                     int lanes_per_thread, int smem_bytes,
                                      void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        popoa_dag_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  popoa_dag_fill_kernel<<<n_jobs, threads, smem_bytes, (cudaStream_t)stream>>>(
+  void (*kernel)(const int*, const int*, int*, int*, int*);
+  if (lanes_per_thread == 1)
+    kernel = popoa_dag_fill_kernel<1>;
+  else if (lanes_per_thread == 2)
+    kernel = popoa_dag_fill_kernel<2>;
+  else if (lanes_per_thread == 4)
+    kernel = popoa_dag_fill_kernel<4>;
+  else if (lanes_per_thread == 8)
+    kernel = popoa_dag_fill_kernel<8>;
+  else
+    return (int)cudaErrorInvalidValue;
+  if (threads <= 0 || threads % 32 != 0 ||
+      threads > max_threads(lanes_per_thread) || smem_bytes < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_jobs, threads, smem_bytes, (cudaStream_t)stream>>>(
       table, data, bp, sinkm, scratch);
   return (int)cudaGetLastError();
 }

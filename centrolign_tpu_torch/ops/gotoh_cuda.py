@@ -42,6 +42,7 @@ FILL_LAUNCHES = 0
 TRACEBACK_LAUNCHES = 0
 DISPATCHED_JOBS = 0
 
+# a traceback block: one warp walks a job, one copies its rows
 TRACEBACK_THREADS = 64
 # cap on one launch's backpointer buffer; a dispatch over it splits
 MAX_LAUNCH_BP_BYTES = 2 << 30
@@ -222,7 +223,10 @@ def gotoh_fill(table: torch.Tensor, seqs: torch.Tensor, bp_size: int,
         raise ValueError(f"table must be (n, {N_COLS}), not {tuple(table.shape)}")
     _check_cuda("table", table, torch.int32, dev)
     _check_cuda("seqs", seqs, torch.int32, dev)
-    bp = torch.zeros(bp_size, dtype=torch.int16, device=dev).view(torch.uint16)
+    # 8 entries of room past the end: the traceback copies whole 16-byte
+    # chunks of the rows it reads
+    bp = torch.zeros(bp_size + 8, dtype=torch.int16,
+                     device=dev)[:bp_size].view(torch.uint16)
     score = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return bp, score

@@ -5,9 +5,13 @@ A list of prepared _DagJob becomes one table row per job
 (`dag_job_table`) and one int32 data buffer (`pack_dag_jobs`); one fill
 launch and one traceback launch then serve the whole list, whatever the
 jobs' shapes, and one device-to-host copy brings back every job's
-traceback rows. The kernels read each job's shape, envelope (K, S) and
-parameters from its table row, so the JAX package's compile buckets and
-its padded, reversed graph-2 arrays have no counterpart here.
+traceback rows. The kernels read each job's shape, in-degrees and
+parameters from its table row and its spans from its delta rows, so the
+JAX package's compile buckets and its padded, reversed graph-2 arrays have
+no counterpart here. The fill's lanes run along each job's short side
+(`lane_sides`), a launch's threads hold the widest job's lanes
+(`fill_lanes`), and its per-job state (`_ring_ints`) lies in shared memory
+where it fits, else in global scratch (`dag_job_table`).
 
 On CUDA tensors the wrappers launch csrc/popoa_dag.cu or raise; on CPU
 tensors they run the plain versions of ops/popoa_dag.py.
@@ -35,12 +39,18 @@ FILL_LAUNCHES = 0
 TRACEBACK_LAUNCHES = 0
 DISPATCHED_JOBS = 0
 
-FILL_THREADS = 256
+# lanes a fill thread holds -> most threads a block may have
+# (csrc/popoa_dag.cu, max_threads)
+FILL_THREADS = {1: 512, 2: 512, 4: 640, 8: 1024}
 TRACEBACK_THREADS = 64
-# dynamic shared memory a block may have on sm_90 (227 KB)
+# dynamic shared memory a block may have on sm_90 (227 KB), and the bytes of
+# it the fill's kernel keeps for itself (static)
 SMEM_LIMIT = 232448
+FILL_STATIC_SMEM = 16
 # gap penalties below this keep every DP value clear of int32's range
 MAX_PENALTY = 1 << 28
+# a node's sink index + 1 shares a word with its flags (csrc/popoa_dag.cu)
+MAX_NODES = 1 << 27
 
 
 def reset_counters() -> None:
@@ -48,10 +58,44 @@ def reset_counters() -> None:
     FILL_LAUNCHES = TRACEBACK_LAUNCHES = DISPATCHED_JOBS = 0
 
 
+def lane_sides(job):
+    """(lane side, other side) of the fill: the lanes run along the short
+    side, graph 1 when V1 <= V2."""
+    return (job.t1, job.t2) if job.t1.V <= job.t2.V else (job.t2, job.t1)
+
+
+def ring_depths(job):
+    """Diagonals each ring plane of the fill keeps, as deep as it is read:
+    (M, read at prev1 and prev2; PM, PMk1 and D, read at prev2; I, read
+    at prev1) = (max(S1, S2) + 1, S2 + 1, S1 + 1)."""
+    S1, S2 = job.t1.S, job.t2.S
+    return max(S1, S2) + 1, S2 + 1, S1 + 1
+
+
 def _ring_ints(job) -> int:
-    """int32 state a fill keeps for `job`: R diagonals of V1 lanes of M,
-    PM, PMk1, I[npw] and D[npw]."""
-    return (3 + 2 * job.params.num_pw) * job.ring * job.t1.V
+    """int32 state a fill keeps for `job`, in the kernel's order and
+    rounded to whole int4s: the other side's node records (4 ints each,
+    then graph 1's bdiag when graph 1 is the other side), then the rings
+    of M, PM, PMk1, D[npw] and I[npw] over the lane side's lanes."""
+    lane, other = lane_sides(job)
+    records = 4 * other.V + (-(-other.V // 4) * 4 if other is job.t1 else 0)
+    dm, d2, d1 = ring_depths(job)
+    npw = job.params.num_pw
+    rings = lane.V * (dm + (2 + npw) * d2 + npw * d1)
+    return -(-(records + rings) // 4) * 4
+
+
+def fill_lanes(jobs):
+    """(lanes per thread, threads per block) of one fill launch over
+    `jobs`: the fewest lanes a thread whose block holds the widest job's
+    lanes (its short side)."""
+    widest = max((min(j.t1.V, j.t2.V) for j in jobs), default=1)
+    for R, most in FILL_THREADS.items():
+        if -(-widest // R) <= most:
+            return R, 32 * -(-widest // (32 * R))
+    raise ValueError(f"a DAG fill block holds at most "
+                     f"{max(r * n for r, n in FILL_THREADS.items())} lanes; "
+                     f"a job's short side is {widest}")
 
 
 def _split64(x: int):
@@ -62,9 +106,10 @@ def _split64(x: int):
 
 def dag_job_table(jobs, smem_limit: int = SMEM_LIMIT):
     """One int32 row of N_COLS per job (columns in ops/popoa_dag.py) and
-    the launch's (scratch ints, shared-memory bytes). A job whose state
-    rings fit `smem_limit` bytes keeps them in shared memory (scratch
-    offset -1); the others get a slice of one global scratch buffer."""
+    the launch's (scratch ints, shared-memory bytes). A job whose fill
+    state (`_ring_ints`) fits `smem_limit` bytes beside the kernel's own
+    keeps it in shared memory (scratch offset -1); the others get a slice
+    of one global scratch buffer."""
     tab = np.zeros((len(jobs), N_COLS), np.int64)
     data_off = sinkm_off = bp_off = scratch_off = 0
     smem = 0
@@ -74,6 +119,9 @@ def dag_job_table(jobs, smem_limit: int = SMEM_LIMIT):
             raise ValueError(f"at most {MAX_PW} gap pieces, not {p.num_pw}")
         if max(p.gap_open) + max(p.gap_extend) >= MAX_PENALTY:
             raise ValueError("gap penalties must stay below 2^28")
+        if max(t1.V, t2.V) >= MAX_NODES:
+            raise ValueError(f"a DAG job's graphs hold under {MAX_NODES} "
+                             f"nodes each")
         K1, K2 = t1.delta.shape[0], t2.delta.shape[0]
         n1, n2 = len(job.sink_pos1), len(job.sink_pos2)
         row = tab[k]
@@ -93,7 +141,7 @@ def dag_job_table(jobs, smem_limit: int = SMEM_LIMIT):
         row[COL_BP_LO], row[COL_BP_HI] = _split64(bp_off)
         bp_off += job.cells
         ring_bytes = 4 * _ring_ints(job)
-        if ring_bytes <= smem_limit:
+        if ring_bytes <= smem_limit - FILL_STATIC_SMEM:
             off = -1
             smem = max(smem, ring_bytes)
         else:
@@ -130,7 +178,7 @@ def _lib() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.popoa_dag_fill_launch.restype = i32
         lib.popoa_dag_fill_launch.argtypes = [vp, vp, vp, vp, vp, i32, i32,
-                                              i32, vp]
+                                              i32, i32, vp]
         lib.popoa_dag_traceback_launch.restype = i32
         lib.popoa_dag_traceback_launch.argtypes = [vp, vp, vp, vp, vp, i32,
                                                    i32, i32, vp]
@@ -139,10 +187,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def popoa_dag_fill(table: torch.Tensor, data: torch.Tensor, bp_size: int,
-                   sinkm_size: int, scratch_size: int, smem_bytes: int):
+                   sinkm_size: int, scratch_size: int, smem_bytes: int,
+                   lanes=None):
     """Fill every job of `table`. Returns (bp int32 flat of bp_size,
-    sink M int32 flat of sinkm_size). The sizes are passed in so that a
-    CUDA launch never reads the table back from the card."""
+    sink M int32 flat of sinkm_size). The sizes and, for a CUDA launch,
+    `lanes` = (lanes per thread, threads per block) from `fill_lanes` are
+    passed in so that a launch never reads the table back from the card."""
     if table.device.type == "cpu":
         return popoa_dag_fill_plain(table, data)
     if table.device.type != "cuda":
@@ -153,9 +203,13 @@ def popoa_dag_fill(table: torch.Tensor, data: torch.Tensor, bp_size: int,
     if table.shape != (n, N_COLS):
         raise ValueError(f"table must be (n, {N_COLS}), not "
                          f"{tuple(table.shape)}")
-    if smem_bytes > SMEM_LIMIT:
+    if smem_bytes > SMEM_LIMIT - FILL_STATIC_SMEM:
         raise ValueError(f"{smem_bytes} B of shared memory is over the "
-                         f"{SMEM_LIMIT} B a block can have")
+                         f"{SMEM_LIMIT - FILL_STATIC_SMEM} B a block of the "
+                         f"fill can have")
+    if lanes is None:
+        raise ValueError("a CUDA fill needs its (lanes per thread, threads) "
+                         "from fill_lanes")
     _check_cuda("table", table, torch.int32, dev)
     _check_cuda("data", data, torch.int32, dev)
     bp = torch.zeros(bp_size, dtype=torch.int32, device=dev)
@@ -168,7 +222,7 @@ def popoa_dag_fill(table: torch.Tensor, data: torch.Tensor, bp_size: int,
     with torch.cuda.device(dev):
         err = lib.popoa_dag_fill_launch(
             table.data_ptr(), data.data_ptr(), bp.data_ptr(),
-            sinkm.data_ptr(), scratch.data_ptr(), n, FILL_THREADS,
+            sinkm.data_ptr(), scratch.data_ptr(), n, lanes[1], lanes[0],
             smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "popoa_dag_fill")
     FILL_LAUNCHES += 1
@@ -207,11 +261,12 @@ def popoa_dag_traceback(bp: torch.Tensor, sinkm: torch.Tensor,
 
 def dag_launch(jobs, device: torch.device):
     """(table, data) on `device` and the sizes of one launch over `jobs`:
-    (bp entries, sink-M entries, scratch ints, shared bytes, cap)."""
+    (bp entries, sink-M entries, scratch ints, shared bytes, cap, fill
+    lanes)."""
     table, scratch, smem = dag_job_table(jobs)
     bp_size, sinkm_size, cap = launch_sizes(job_fields(table))
     return (_to_device(table, device), _to_device(pack_dag_jobs(jobs), device),
-            (bp_size, sinkm_size, scratch, smem, cap))
+            (bp_size, sinkm_size, scratch, smem, cap, fill_lanes(jobs)))
 
 
 def popoa_dag_align_jobs(jobs, device: torch.device) -> list:
@@ -221,9 +276,9 @@ def popoa_dag_align_jobs(jobs, device: torch.device) -> list:
     DISPATCHED_JOBS += len(jobs)
     if not jobs:
         return []
-    table, data, (bp_size, sinkm_size, scratch, smem, cap) = dag_launch(
-        jobs, device)
+    table, data, (bp_size, sinkm_size, scratch, smem, cap, lanes) = \
+        dag_launch(jobs, device)
     bp, sinkm = popoa_dag_fill(table, data, bp_size, sinkm_size, scratch,
-                               smem)
+                               smem, lanes)
     rows = popoa_dag_traceback(bp, sinkm, table, data, cap)
     return list(rows.cpu().numpy())

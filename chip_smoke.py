@@ -19,9 +19,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    in-degree up to 4 and span up to 32 on both sides, npw 1-3, several
    sources and sinks, walks that leave through the boundary row, the
    boundary column and the corner, a job with no interior alignment, a job
-   whose state is in global scratch, more than 8 jobs in one launch and the
-   largest five.fasta shape (1268 x 242): bit-equal backpointers, sink M and
-   traceback rows (exact);
+   whose state is in global scratch, more than 8 jobs in one launch,
+   five.fasta's shapes with the fill's lanes on graph 1 (166 x 1189, 242 x
+   1268) and on graph 2 (1268 x 242, 1195 x 169), and a short side of one
+   warp: bit-equal backpointers, sink M and traceback rows (exact);
 3c. the single-problem Gotoh entry against its plain version on three
    pairs, one with a short side over 4096 (exact);
 4. the pairwise path: the port's CLI on benchdata/pair.fasta; the CIGAR
@@ -35,11 +36,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    have taken 12 jobs of 2,731,723 cells and the chain tier 88 jobs of
    21,645,992 cells; then the DAG kernels and the Gotoh kernels are held
    and timed against their plain versions on the jobs this path
-   dispatched;
+   dispatched, with each DAG fill launch's largest job (the most cells),
+   its diagonals and the time per diagonal step;
 5b. the MSA path again with the DAG tier off: the same GFA, and its wall
    and host `po` time beside the first run's;
 6. the single-problem entry on a pair.fasta-sized gap (4356 x 3330), timed
-   against its plain version;
+   against its plain version, and the Gotoh traceback alone on that gap,
+   with its steps and the time per step;
 6b. the Gotoh fill alone on that gap and on narrower ones of the same
    length, each with one block (C = 1) and split over a cluster (C = 8),
    bit-equal to the plain fill, with the time per diagonal step: where the
@@ -338,9 +341,11 @@ def dag_graph(rng, V, K, S, n_src=1, n_sink=1, labels=None):
     return g
 
 
-def make_dag_bag(rng, params):
-    """(jobs, what) for the DAG kernels: prepared _DagJobs and a label for
-    each (see the module docstring, phase 3b)."""
+def dag_job(g1, g2, params, src1=None, snk1=None):
+    """A prepared _DagJob of g1 x g2 (sources and sinks: the nodes without
+    predecessors or successors, unless given for graph 1), or None outside
+    the envelope (a span can grow past S when the topological order
+    interleaves branches)."""
     import numpy as np
     from centrolign_tpu_torch.ops.popoa_dag import _DagJob
 
@@ -348,35 +353,48 @@ def make_dag_bag(rng, params):
         return (np.flatnonzero(g.in_degrees() == 0),
                 np.flatnonzero(g.out_degrees() == 0))
 
+    s1, k1 = ends(g1)
+    s2, k2 = ends(g2)
+    j = _DagJob(g1, g2, s1 if src1 is None else src1, s2,
+                k1 if snk1 is None else snk1, k2, params)
+    if not j.eligible:
+        return None
+    j.prepare()
+    return j
+
+
+def related_dag_job(rng, params, V, K, S, lead1, lead2, n_src=1, n_sink=1):
+    """A job of two graphs over mutated copies of one sequence, graph 1
+    with `lead1` extra leading nodes and graph 2 with `lead2` (so the walk
+    leaves through the column, the row or the corner), each of in-degree
+    up to K and span up to S."""
+    import numpy as np
+
+    for _ in range(20):
+        base = rng.integers(0, 4, V)
+        lab2 = base.copy()
+        flip = rng.random(V) < 0.05
+        lab2[flip] = (lab2[flip] + 1) % 4
+        lab1 = np.concatenate([rng.integers(0, 4, lead1), base])
+        lab2 = np.concatenate([rng.integers(0, 4, lead2), lab2])
+        j = dag_job(dag_graph(rng, len(lab1), K, S, n_src, n_sink, lab1),
+                    dag_graph(rng, len(lab2), K, S, n_src, n_sink, lab2),
+                    params)
+        if j is not None:
+            return j
+    raise RuntimeError("no bag job inside the envelope in 20 draws")
+
+
+def make_dag_bag(rng, params):
+    """(jobs, what) for the DAG kernels: prepared _DagJobs and a label for
+    each (see the module docstring, phase 3b)."""
+
     def job(g1, g2, npw, src1=None, snk1=None):
-        """A prepared job, or None outside the envelope (a span can grow
-        past S when the topological order interleaves branches)."""
-        s1, k1 = ends(g1)
-        s2, k2 = ends(g2)
-        j = _DagJob(g1, g2, s1 if src1 is None else src1, s2,
-                    k1 if snk1 is None else snk1, k2, params.truncated(npw))
-        if not j.eligible:
-            return None
-        j.prepare()
-        return j
+        return dag_job(g1, g2, params.truncated(npw), src1, snk1)
 
     def related(V, K, S, lead1, lead2, npw, n_src=1, n_sink=1):
-        """Two graphs over mutated copies of one sequence, graph 1 with
-        `lead1` extra leading nodes and graph 2 with `lead2`: the walk
-        leaves through the column, the row or the corner."""
-        for _ in range(20):
-            base = rng.integers(0, 4, V)
-            lab2 = base.copy()
-            flip = rng.random(V) < 0.05
-            lab2[flip] = (lab2[flip] + 1) % 4
-            lab1 = np.concatenate([rng.integers(0, 4, lead1), base])
-            lab2 = np.concatenate([rng.integers(0, 4, lead2), lab2])
-            j = job(dag_graph(rng, len(lab1), K, S, n_src, n_sink, lab1),
-                    dag_graph(rng, len(lab2), K, S, n_src, n_sink, lab2),
-                    npw)
-            if j is not None:
-                return j
-        raise RuntimeError("no bag job inside the envelope in 20 draws")
+        return related_dag_job(rng, params.truncated(npw), V, K, S, lead1,
+                               lead2, n_src, n_sink)
 
     jobs, what = [], []
     for k in range(12):
@@ -392,6 +410,16 @@ def make_dag_bag(rng, params):
     what.append("several sources and sinks")
     jobs.append(related(242, 2, 4, 1026, 0, 3))
     what.append("1268 x 242")
+    # five.fasta's shapes with the lanes on graph 1 (166 x 1189, 242 x
+    # 1268) and on graph 2 (1195 x 169), and a short side of one warp
+    jobs.append(related(166, 2, 4, 0, 1023, 3))
+    what.append("166 x 1189")
+    jobs.append(related(242, 1, 1, 0, 1026, 3))
+    what.append("242 x 1268")
+    jobs.append(related(169, 1, 1, 1026, 0, 3))
+    what.append("1195 x 169")
+    jobs.append(related(30, 2, 4, 0, 260, 2))
+    what.append("one warp of lanes")
     jobs.append(related(2400, 4, 32, 0, 0, 3))
     what.append("state in global scratch")
     # graph 1's one given source lies in one component and its one given
@@ -432,10 +460,10 @@ def compare_dag(jobs, device, reps):
     from centrolign_tpu_torch.ops import popoa_dag as plain
     from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
 
-    table, data, (bp_size, sm_size, scratch, smem, cap) = pdc.dag_launch(
-        jobs, device)
+    table, data, (bp_size, sm_size, scratch, smem, cap, lanes) = \
+        pdc.dag_launch(jobs, device)
     (bp_k, sm_k), fill_ms = timed(lambda: pdc.popoa_dag_fill(
-        table, data, bp_size, sm_size, scratch, smem), reps)
+        table, data, bp_size, sm_size, scratch, smem, lanes), reps)
     rows_k, tb_ms = timed(lambda: pdc.popoa_dag_traceback(
         bp_k, sm_k, table, data, cap), reps)
     (bp_p, sm_p), fill_plain_ms = wall_ms(
@@ -668,6 +696,16 @@ def main() -> int:
             table[name]["ms"] += ms
             table[name]["plain_ms"] += pms
             errs[name] = max(errs[name], err)
+        # the launch's time per diagonal of its largest job (the most
+        # cells), which sets the launch's time
+        big = max(part, key=lambda j: j.cells)
+        diags = big.t1.V + big.t2.V - 1
+        fill_ms = res["popoa_dag_fill"][1]
+        print(f"five.fasta DAG fill launch of {len(part)} jobs: "
+              f"{fill_ms:.3f} ms; largest job {big.t1.V} x {big.t2.V} "
+              f"(K {big.t1.K}/{big.t2.K}, S {big.t1.S}/{big.t2.S}), {diags} "
+              f"diagonals, {fill_ms / diags * 1e3:.3f} us a diagonal step "
+              f"({card})", flush=True)
     for name in ("popoa_dag_fill", "popoa_dag_traceback"):
         k = table[name]
         print(f"five.fasta DAG jobs, {name}: bit-equal, kernel "
@@ -719,6 +757,20 @@ def main() -> int:
     print(f"gotoh_align_device on pair.fasta's first 4356 x 3330 bases: "
           f"score {score}, {len(aln)} pairs, bit-equal; kernel {ms:.3f} ms, "
           f"plain {pms:.1f} ms ({card})", flush=True)
+    # the traceback alone on that gap: one warp's walk, step by step
+    gtab = gc.params_table([job]).to(device)
+    bp_size, plan, cap = gc.launch_sizes([job])
+    bp_g, sc_g = gc.gotoh_fill(gtab, gc.pack_seqs([job]).to(device), bp_size,
+                               plan)
+    rows_g, tb_ms = timed(lambda: gc.gotoh_traceback(bp_g, sc_g, gtab, cap),
+                          20)
+    require(torch.equal(rows_g, plain_gotoh.gotoh_traceback_plain(
+        bp_g, sc_g, gtab, cap)), "the traceback of 4356 x 3330 differs from "
+        "the host walk")
+    tb_steps = int(rows_g[0, 0, 0])
+    print(f"gotoh_traceback on the 4356 x 3330 gap: bit-equal; {tb_ms:.3f} "
+          f"ms over {tb_steps} steps, {tb_ms / tb_steps * 1e3:.4f} us a step "
+          f"({card})", flush=True)
 
     # 6b. the fill alone, one block against a cluster, on the 4356 x 3330
     # gap and on narrower gaps of the same length

@@ -227,3 +227,105 @@ def test_fill_plan_owns_every_lane_once(shapes, cluster_min_lanes):
 def test_fill_plan_refuses_a_short_side_past_its_blocks():
     with pytest.raises(ValueError):
         gc.fill_plan([(40000, 40000)])
+
+
+# the DAG jobs benchdata/five.fasta + five.nwk sends to the DAG tier, as
+# (V1, V2, K1, K2, S1, S2, npw)
+FIVE_DAG_JOBS = [
+    (440, 441, 1, 2, 1, 2, 3), (558, 559, 1, 2, 1, 2, 3),
+    (440, 441, 1, 2, 1, 2, 3), (1195, 169, 1, 1, 1, 1, 2),
+    (417, 416, 2, 1, 2, 1, 2), (1194, 168, 1, 1, 1, 1, 2),
+    (1169, 142, 2, 1, 2, 1, 2), (1252, 226, 1, 1, 1, 1, 2),
+    (559, 559, 2, 2, 2, 2, 3), (166, 1189, 2, 1, 4, 1, 2),
+    (242, 1268, 1, 1, 1, 1, 2), (419, 420, 1, 2, 1, 2, 2),
+]
+
+
+def _dag(rng, V, K, S):
+    """A chain of V nodes with, when K = 2, extra edges of span S: in-degree
+    K, longest span S."""
+    from centrolign_tpu_torch.graph import BaseGraph
+    g = BaseGraph()
+    g.add_nodes(rng.integers(0, 4, V))
+    src = list(range(V - 1))
+    dst = list(range(1, V))
+    if K == 2:
+        src += list(range(0, V - S, 7))
+        dst += list(range(S, V, 7))
+    g.add_edges(src, dst)
+    return g
+
+
+def _five_dag_jobs():
+    import chip_smoke
+    rng = np.random.default_rng(4)
+    params = params_from_arrays(20, 80, np.array([60, 800, 2500]),
+                                np.array([30, 5, 1]))
+    jobs = []
+    for V1, V2, K1, K2, S1, S2, npw in FIVE_DAG_JOBS:
+        job = chip_smoke.dag_job(_dag(rng, V1, K1, S1), _dag(rng, V2, K2, S2),
+                                 params.truncated(npw))
+        assert (job.t1.V, job.t2.V, job.t1.K, job.t2.K, job.t1.S,
+                job.t2.S) == (V1, V2, K1, K2, S1, S2)
+        jobs.append(job)
+    return jobs
+
+
+def _dag_bag():
+    import chip_smoke
+    params = params_from_arrays(20, 80, np.array([60, 800, 2500]),
+                                np.array([30, 5, 1]))
+    return chip_smoke.make_dag_bag(np.random.default_rng(20261016), params)[0]
+
+
+@pytest.mark.parametrize("jobs", [_five_dag_jobs, _dag_bag],
+                         ids=["five_fasta", "bag"])
+def test_dag_fill_layout(jobs):
+    """csrc/popoa_dag.cu's fill layout, replayed as the kernel derives it:
+    each ring plane is as deep as the longest span it is read at, taken
+    from the delta rows the kernel reads (M: both graphs; PM, PMk1, D:
+    graph 2; I: graph 1); the state (the other side's records, then the
+    rings over the short side's lanes) is whole int4s; the launch's shared
+    memory stays within what a block has; every five.fasta job's state is
+    in shared memory, and a job is in global scratch only when its state
+    does not fit; the block holds the widest job's lanes."""
+    from centrolign_tpu_torch.ops import popoa_dag as dag
+    from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+    jobs = jobs()
+    table, scratch, smem = pdc.dag_job_table(jobs)
+    t = dag.job_fields(table)
+    data = pdc.pack_dag_jobs(jobs).numpy()
+    room = MAX_SHARED_BYTES - pdc.FILL_STATIC_SMEM
+    assert smem <= room
+    R, threads = pdc.fill_lanes(jobs)
+    assert threads % 32 == 0 and threads <= pdc.FILL_THREADS[R]
+    off = 0
+    for row, job in zip(t, jobs):
+        V1, V2, K1, K2 = (int(x) for x in row[[dag.COL_V1, dag.COL_V2,
+                                                dag.COL_K1, dag.COL_K2]])
+        g1, g2 = int(row[dag.COL_G1]), int(row[dag.COL_G2])
+        S1 = int(data[g1 + dag.G1_DELTA * V1:g1 + (dag.G1_DELTA + K1) * V1]
+                 .max())
+        S2 = int(data[g2 + dag.G2_DELTA * V2:g2 + (dag.G2_DELTA + K2) * V2]
+                 .max())
+        assert pdc.ring_depths(job) == (max(S1, S2) + 1, S2 + 1, S1 + 1)
+        lane, other = pdc.lane_sides(job)
+        assert lane.V == min(V1, V2) <= R * threads
+        dm, d2, d1 = pdc.ring_depths(job)
+        npw = int(row[dag.COL_NPW])
+        state = (4 * other.V + (-(-V1 // 4) * 4 if V1 > V2 else 0)
+                 + lane.V * (dm + (2 + npw) * d2 + npw * d1))
+        assert pdc._ring_ints(job) == -(-state // 4) * 4
+        in_smem = 4 * pdc._ring_ints(job) <= room
+        scr = int(row[dag.COL_SCRATCH_LO])
+        if in_smem:
+            assert scr == -1 and 4 * pdc._ring_ints(job) <= smem
+        else:
+            assert scr == off and scr % 4 == 0
+            off += pdc._ring_ints(job)
+    assert off == scratch
+    if jobs[0].t1.V == FIVE_DAG_JOBS[0][0]:
+        assert scratch == 0
+        assert max(4 * pdc._ring_ints(j) for j in jobs) == smem
+    else:
+        assert scratch > 0

@@ -161,3 +161,43 @@ def test_wrapper_rejects_wrong_dtype(card):
     with pytest.raises(ValueError):
         gc.gotoh_fill(table, gc.pack_seqs(jobs).to(card).long(),
                       *gc.launch_sizes(jobs)[:2])
+
+
+def _runs(rng, lead, body, tail, npw, swap_pref, lane_is_i):
+    """A job whose walk holds a pure gap run of `lead` and one of `tail`:
+    seq1 carries `lead` extra leading and `tail` extra trailing bases; the
+    lanes index i when lane_is_i, else j."""
+    core = rng.integers(0, 4, body).astype(np.int32)
+    long = np.concatenate([rng.integers(0, 4, lead), core,
+                           rng.integers(0, 4, tail)]).astype(np.int32)
+    s1, s2 = (core, long) if lane_is_i else (long, core)
+    return (s1, s2, swap_pref, PARAMS.truncated(npw))
+
+
+# the traceback keeps the rows of the 96 diagonals below its walk, 97
+# lanes each, in a ring of 128 rows
+TRACEBACK_CASES = {
+    # walks through the ring many times over, both orientations, npw 1-3
+    "long_walks": lambda rng: [_job(rng, 2000, 1900, False, 3),
+                               _job(rng, 1500, 2100, True, 2),
+                               _job(rng, 3000, 700, True, 1)],
+    # short sides below a ring row's lanes
+    "narrow": lambda rng: [_job(rng, s, s + 300, bool(s % 2), 1 + s % 3)
+                           for s in (1, 2, 7, 31, 63)]
+    + [_job(rng, s + 250, s, bool(s % 2), 1 + s % 3) for s in (3, 33, 64)],
+    # long pure I and pure D runs: the walk along one lane, or down the
+    # lanes one a diagonal
+    "gap_runs": lambda rng: [
+        _runs(rng, lead, 300, tail, 1 + k % 3, bool(k % 2), lii)
+        for k, (lead, tail, lii) in enumerate(
+            [(500, 0, True), (500, 0, False), (0, 400, True),
+             (0, 400, False), (130, 129, True), (64, 65, False)])],
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRACEBACK_CASES))
+def test_traceback_ring_matches_host_walk(card, case):
+    """The traceback kernel's walk from its row ring, bit-equal to the host
+    walk."""
+    _check_launch(card, TRACEBACK_CASES[case](np.random.default_rng(
+        len(case))))

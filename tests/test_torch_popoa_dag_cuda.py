@@ -10,7 +10,9 @@ traceback rows of csrc/popoa_dag.cu must be bit-equal to ops/popoa_dag.py's
 plain fill and host walk, on chip_smoke.py's bag (in-degree up to 4, span
 up to 32, npw 1-3, several sources and sinks, every exit of the walk, a
 job with no interior alignment, state in shared memory and in global
-scratch, the largest five.fasta shape).
+scratch, five.fasta's shapes), and on jobs chosen for the fill's layout:
+the lanes on graph 1 or graph 2, a short side of one warp or of several,
+five.fasta's shapes, and in-degree 4 / span 32 in global scratch.
 """
 
 import numpy as np
@@ -34,13 +36,16 @@ def card():
     return torch.device("cuda", 0)
 
 
-def test_kernels_match_plain_on_the_bag(card):
-    jobs, _ = chip_smoke.make_dag_bag(np.random.default_rng(5), PARAMS)
-    table, data, (bp_size, sm_size, scratch, smem, cap) = pdc.dag_launch(
-        jobs, card)
+def _check_launch(card, jobs, smem_limit=pdc.SMEM_LIMIT):
+    """One fill and one traceback launch over `jobs`, bit-equal to the plain
+    fill and host walk. Returns the traceback rows."""
+    table, scratch, smem = pdc.dag_job_table(jobs, smem_limit)
+    bp_size, sm_size, cap = plain.launch_sizes(plain.job_fields(table))
+    table = table.to(card)
+    data = pdc.pack_dag_jobs(jobs).to(card)
     fills, tbs = pdc.FILL_LAUNCHES, pdc.TRACEBACK_LAUNCHES
     bp, sinkm = pdc.popoa_dag_fill(table, data, bp_size, sm_size, scratch,
-                                   smem)
+                                   smem, pdc.fill_lanes(jobs))
     rows = pdc.popoa_dag_traceback(bp, sinkm, table, data, cap)
     torch.cuda.synchronize()
     assert (pdc.FILL_LAUNCHES, pdc.TRACEBACK_LAUNCHES) == (fills + 1, tbs + 1)
@@ -49,8 +54,49 @@ def test_kernels_match_plain_on_the_bag(card):
     assert torch.equal(sinkm, sinkm_p)
     rows_p = plain.popoa_dag_traceback_plain(bp, sinkm, table, data, cap)
     assert torch.equal(rows, rows_p)
+    return rows
+
+
+def test_kernels_match_plain_on_the_bag(card):
+    jobs, _ = chip_smoke.make_dag_bag(np.random.default_rng(5), PARAMS)
+    rows = _check_launch(card, jobs)
     exits = set(rows[:, 0, 1].tolist())
     assert {1, 2, 3, 4} <= exits
+
+
+# (V, K, S, lead1, lead2): graph 1 has V + lead1 nodes, graph 2 V + lead2;
+# the fill's lanes run along the shorter graph
+LAYOUT_CASES = {
+    "lanes_on_graph1": [(300, 2, 8, 0, 90), (200, 4, 32, 0, 1)],
+    "lanes_on_graph2": [(300, 2, 8, 90, 0), (200, 4, 32, 1, 0)],
+    "one_warp": [(20, 2, 4, 0, 300), (31, 3, 8, 250, 0), (1, 1, 1, 40, 0)],
+    "several_warps": [(33, 2, 4, 0, 200), (130, 4, 32, 70, 0)],
+    "five_fasta": [(440, 2, 2, 0, 1), (558, 2, 2, 0, 1), (169, 1, 1, 1026, 0),
+                   (416, 2, 2, 1, 0), (142, 2, 2, 1027, 0),
+                   (226, 1, 1, 1026, 0), (166, 2, 4, 0, 1023),
+                   (242, 1, 1, 0, 1026)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_fill_layout_matches_plain(card, case):
+    """Jobs chosen for where the fill's lanes run and how many warps hold
+    them, npw 1-3, in one launch."""
+    rng = np.random.default_rng(len(case))
+    jobs = [chip_smoke.related_dag_job(rng, PARAMS.truncated(1 + k % 3), *c)
+            for k, c in enumerate(LAYOUT_CASES[case])]
+    _check_launch(card, jobs)
+
+
+@pytest.mark.parametrize("V", [700, 2400])
+def test_fill_in_global_scratch(card, V):
+    """In-degree 4 and span 32: state too large for shared memory (and, at
+    V = 700, the same job forced there by a zero limit)."""
+    rng = np.random.default_rng(V)
+    job = chip_smoke.related_dag_job(rng, PARAMS, V, 4, 32, 0, 0)
+    assert max(job.t1.K, job.t2.K) == 4
+    assert max(job.t1.S, job.t2.S) == 32
+    _check_launch(card, [job], smem_limit=0 if V == 700 else pdc.SMEM_LIMIT)
 
 
 def test_batch_on_card_matches_cpu(card):
