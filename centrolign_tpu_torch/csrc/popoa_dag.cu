@@ -17,11 +17,13 @@
 // base-5 digits decode exactly. It also writes M at every sink pair.
 //
 // popoa_dag_traceback replaces _traceback_scan (a lax.while_loop) plus the
-// sink-pair argmax before it: one thread per job picks the first best sink
-// pair (s1-major), walks the backpointers until the walk enters the
-// boundary row or column or ends at the source-pair corner, and writes
-// (count, exit kind), (exit r1, exit r2), (score, best pair) and the pairs;
-// the host finishes the lead gap (ops/popoa_dag.py::_assemble_result).
+// sink-pair argmax before it: one block of two warps per job picks the
+// first best sink pair (s1-major) by a reduction, then one warp walks the
+// backpointers until the walk enters the boundary row or column or ends at
+// the source-pair corner, while the other streams the backpointers and
+// delta words the walk can reach into shared memory; it writes (count,
+// exit kind), (exit r1, exit r2), (score, best pair) and the pairs; the
+// host finishes the lead gap (ops/popoa_dag.py::_assemble_result).
 //
 // No int32 value can wrap: M >= MININF everywhere (the diagonal term is
 // MININF or a real score, the boundary vectors are >= MININF), so every
@@ -38,9 +40,13 @@
 // and 559 lanes) are bound by issue: chip_smoke.py measures each of their
 // launches at about 1.1 us a diagonal step on an H100 80GB HBM3 at 700 W
 // (PERF.md). The next gain is to split a wide job over several SMs.
-// The traceback is a pointer chase of at most V1 + V2 dependent loads,
-// bounded by memory latency; its rows for the whole launch cross to the
-// host in one copy.
+// The traceback is a pointer chase of at most V1 + V2 dependent steps,
+// bounded by the latency of one step. A step reads only shared memory (the
+// backpointer from a ring that a copier warp fills by cp.async ahead of the
+// walk, both nodes' delta words from windows the copier stages, and two
+// decode tables in place of divisions), so its chain is a few shared loads
+// and the position update; its rows for the whole launch cross to the host
+// in one copy.
 //
 // The fill's design. Lanes run along the job's short side, the "lane side"
 // (graph 1 when V1 <= V2, else graph 2); the other side's position of a
@@ -71,6 +77,7 @@
 // Table row (int32, 24 columns) and data layout: see
 // centrolign_tpu_torch/ops/popoa_dag.py (COL_*, G1_*, G2_*).
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -165,6 +172,18 @@ __device__ int4 node_record(const int* __restrict__ g, int V, int K, int p,
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(smem_addr(p)),
+               "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];"
+               : "=r"(v) : "r"(smem_addr(p)) : "memory");
+  return v;
 }
 
 // slot of diagonal d - s in a ring of depth P whose diagonal d is slot c
@@ -529,99 +548,253 @@ __global__ void __launch_bounds__(max_threads(R), 1)
 #undef FILL
 }
 
-__global__ void popoa_dag_traceback_kernel(const int* __restrict__ bp,
-                                           const int* __restrict__ sinkm,
-                                           const int* __restrict__ table,
-                                           const int* __restrict__ data,
-                                           int* __restrict__ out,
-                                           int n_jobs, int cap) {
-  const int job = blockIdx.x * blockDim.x + threadIdx.x;
-  if (job >= n_jobs) return;
+// The traceback's shared memory. Every move lowers r1 + r2 by at least 1
+// and each coordinate by no more than the drop in r1 + r2, so from (d, r1)
+// the walk reaches on diagonal d - t only r1' in [r1 - t, r1]. The cells of
+// the kTbAhead diagonals below the walk sit in a ring of rows, each holding
+// that window of the walk's r1 when it was copied; a ring row places the
+// backpointer of global index G (counted from bp) at column G % kTbCols, so
+// whole aligned 16-byte chunks land without an offset of their own. Each
+// graph's nodes sit in a window of kTbNodes delta words (a node's K <= 4
+// deltas as the bytes of one word) at slot p % kTbNodes, the kTbNodeAhead
+// nodes below the walk staged: V is not bounded, the window is.
+constexpr int kTbAhead = 96;    // diagonals copied below the walk (>= 2 S)
+constexpr int kTbRing = 128;    // ring rows, a power of 2 > kTbAhead
+constexpr int kTbCols = 128;    // ring columns: every chunk of a window
+constexpr int kTbNodes = 2048;  // a graph's word window, a power of 2
+constexpr int kTbNodeAhead = 1024;  // nodes staged below the walk
+constexpr int kTbUnroll = 8;    // nodes a copier lane stages at once
+constexpr int kTbThreads = 64;  // a walking warp and a copier warp
+
+// The traceback's dynamic shared memory, in this order.
+struct TbShared {
+  int ring[kTbRing * kTbCols];
+  int words[2][kTbNodes];
+  int diag_tab[256];  // diagonal code -> c | k1 << 8 | k2 << 16
+  int gap_tab[1024];  // I/D pack -> per piece pw, byte pw: k | open << 4
+  long long pos;      // the walk's (d << 32 | r1); -1 once it has ended
+  int landed[3];      // lowest diagonal, graph-1 node, graph-2 node landed
+  int best_v[2], best_i[2];
+};
+
+// diag_offset modulo 2^31, in 32-bit arithmetic: enough for a ring column
+__device__ __forceinline__ uint32_t diag_offset_lo(uint32_t V1, uint32_t V2,
+                                                   uint32_t full1,
+                                                   uint32_t d) {
+  const uint32_t a = d <= V1 ? (d * (d + 1)) >> 1 : full1 + (d - V1) * V1;
+  const uint32_t t = d > V2 ? d - V2 : 0;
+  return a - ((t * (t + 1)) >> 1);
+}
+
+// Stage the delta words of nodes [bot, top] of a graph (delta row 0 at
+// `delta`, V nodes, K rows) into its window, kTbUnroll nodes a lane at once.
+__device__ __forceinline__ void stage_words(const int* __restrict__ delta,
+                                            int V, int K, int* words,
+                                            int top, int bot, int l) {
+  for (int p0 = top - l; p0 >= bot; p0 -= 32 * kTbUnroll) {
+    int w[kTbUnroll];
+#pragma unroll
+    for (int u = 0; u < kTbUnroll; ++u) {
+      const int p = p0 - 32 * u;
+      w[u] = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (p >= bot && k < K) w[u] |= __ldg(delta + k * V + p) << (8 * k);
+    }
+#pragma unroll
+    for (int u = 0; u < kTbUnroll; ++u)
+      if (p0 - 32 * u >= bot) words[(p0 - 32 * u) & (kTbNodes - 1)] = w[u];
+  }
+}
+
+// One job a block of two warps. First the block finds the first best sink
+// pair (s1-major, the lowest index among the maxima) and builds the decode
+// tables. Then warp 1 copies: it reads the walk's position, issues by
+// cp.async the window of each diagonal that came within kTbAhead of it (a
+// lane a diagonal, its aligned 16-byte chunks one after another, so that 32
+// diagonals' 64-bit offsets are worked out at once: with a lane a chunk,
+// the copier fell behind the walk), stages the delta words of the nodes
+// that came within kTbNodeAhead, waits for them and publishes the lowest
+// diagonal and nodes that have landed. Warp 0 walks: every lane holds the
+// walk's state and takes the same step, reading the backpointer and both
+// nodes' delta words from shared memory and decoding by table; it waits
+// only when the walk reaches a diagonal or node not yet published. Lane k %
+// 32 keeps step k's pair; every 32 steps the warp stores them in one store.
+// The position update and the exits are those of
+// centrolign_tpu/ops/popoa_dag.py::_traceback_scan.
+__global__ void __launch_bounds__(kTbThreads)
+    popoa_dag_traceback_kernel(const int* __restrict__ bp,
+                               const int* __restrict__ sinkm,
+                               const int* __restrict__ table,
+                               const int* __restrict__ data,
+                               int* __restrict__ out, int cap) {
+  extern __shared__ int4 tb_smem[];
+  TbShared& sh = *(TbShared*)tb_smem;
+  const int job = blockIdx.x, warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   const DagJob jb = load_job(table, job);
   const int V1 = jb.V1, V2 = jb.V2, K1 = jb.K1, K2 = jb.K2;
   int* rows = out + (int64_t)job * (cap + 3) * 2;
 
-  // first best sink pair, s1-major
+  // the first best sink pair: each thread its strided share, then the warps
   const int* sm = sinkm + jb.sinkm;
-  int best = 0, bv = sm[0];
-  for (int i = 1; i < jb.n1 * jb.n2; ++i)
-    if (sm[i] > bv) {
-      bv = sm[i];
-      best = i;
+  const int n12 = jb.n1 * jb.n2;
+  int bv = INT_MIN, bi = n12;
+  for (int i = threadIdx.x; i < n12; i += kTbThreads) {
+    const int v = sm[i];
+    if (v > bv || bi == n12) {
+      bv = v;
+      bi = i;
     }
-  rows[4] = bv;
-  rows[5] = best;
-  if (bv <= kNegHalf) {
-    rows[1] = kExitNoAlignment;  // no interior alignment
+  }
+  const int wv = __reduce_max_sync(0xffffffffu, bv);
+  const int wi = __reduce_min_sync(0xffffffffu, bv == wv ? bi : n12);
+  if (l == 0) {
+    sh.best_v[warp] = wv;
+    sh.best_i[warp] = wi;
+  }
+  for (int i = threadIdx.x; i < 256; i += kTbThreads)
+    sh.diag_tab[i] = i % 7 | (i / 7 % 5) << 8 | (i / 35) << 16;
+  for (int i = threadIdx.x; i < 1024; i += kTbThreads) {
+    int e = 0;
+    for (int pw = 0, q = i; pw < kMaxPw; ++pw, q /= 10)
+      e |= (q % 10 % 5 | q % 10 / 5 << 4) << (8 * pw);
+    sh.gap_tab[i] = e;
+  }
+  __syncthreads();
+  const bool second = sh.best_v[1] > sh.best_v[0] ||
+                      (sh.best_v[1] == sh.best_v[0] &&
+                       sh.best_i[1] < sh.best_i[0]);
+  const int best_v = sh.best_v[second], best = sh.best_i[second];
+  if (best_v <= kNegHalf) {
+    if (threadIdx.x == 0) {
+      rows[1] = kExitNoAlignment;  // no interior alignment
+      rows[4] = best_v;
+      rows[5] = best;
+    }
     return;
   }
-  const int* g1 = data + jb.g1;
-  const int* g2 = data + jb.g2;
-  int r1 = data[jb.sinkpos + best / jb.n2];
-  int r2 = data[jb.sinkpos + jb.n1 + best % jb.n2];
-  const int* bpj = bp + jb.bp_off;
-
-  int comp = 0, idx = cap + 2, count = 0, kind = kExitLost;
-  for (int step = 0; step < V1 + V2; ++step) {
-    const int d = r1 + r2;
-    const int v = bpj[diag_offset(V1, V2, d) + r1 - max(0, d - V2 + 1)];
-    const int diagcode = v & 255, ipack = (v >> 8) & 1023;
-    const int dpack = (v >> 18) & 1023;
-    const int c = comp == 0 ? diagcode % 7 : comp;
-    ++count;
-    if (c == 0) {  // diagonal
-      rows[2 * idx] = r1;
-      rows[2 * idx + 1] = r2;
-      --idx;
-      const int k1 = (diagcode / 7) % 5, k2 = (diagcode / 7) / 5;
-      const bool b1 = k1 >= K1, b2 = k2 >= K2;
-      if (b1 && b2) {
-        kind = kExitCorner;
-        break;
-      }
-      if (!b2) r2 -= g2[(kDelta2 + k2) * V2 + r2];
-      if (b1) {
-        kind = kExitRow;
-        break;
-      }
-      r1 -= g1[(kDelta1 + k1) * V1 + r1];
-      if (b2) {
-        kind = kExitCol;
-        break;
-      }
-      comp = 0;
-    } else if (c & 1) {  // I[(c-1)/2]: consumes r1
-      int dig = ipack;
-      for (int pw = 0; pw < (c - 1) / 2; ++pw) dig /= 10;
-      dig %= 10;
-      rows[2 * idx] = r1;
-      rows[2 * idx + 1] = -1;
-      --idx;
-      if (dig % 5 >= K1) {
-        kind = kExitRow;
-        break;
-      }
-      r1 -= g1[(kDelta1 + dig % 5) * V1 + r1];
-      comp = dig / 5 == 1 ? 0 : c;
-    } else {  // D[c/2-1]: consumes r2
-      int dig = dpack;
-      for (int pw = 0; pw < c / 2 - 1; ++pw) dig /= 10;
-      dig %= 10;
-      rows[2 * idx] = -1;
-      rows[2 * idx + 1] = r2;
-      --idx;
-      if (dig % 5 >= K2) {
-        kind = kExitCol;
-        break;
-      }
-      r2 -= g2[(kDelta2 + dig % 5) * V2 + r2];
-      comp = dig / 5 == 1 ? 0 : c;
-    }
+  const int r1_0 = data[jb.sinkpos + best / jb.n2];
+  const int r2_0 = data[jb.sinkpos + jb.n1 + best % jb.n2];
+  const int* delta1 = data + jb.g1 + kDelta1 * V1;
+  const int* delta2 = data + jb.g2 + kDelta2 * V2;
+  if (threadIdx.x == 0) {
+    sh.pos = ((long long)(r1_0 + r2_0) << 32) | r1_0;
+    sh.landed[0] = r1_0 + r2_0 + 1;
+    sh.landed[1] = r1_0 + 1;
+    sh.landed[2] = r2_0 + 1;
   }
-  rows[0] = count;
-  rows[1] = kind;
-  rows[2] = r1;
-  rows[3] = r2;
+  __syncthreads();
+
+  if (warp == 1) {
+    // the copier: diagonals below `low` and nodes below `low1` / `low2`
+    // are not issued yet
+    int low = r1_0 + r2_0 + 1, low1 = r1_0 + 1, low2 = r2_0 + 1;
+    for (;;) {
+      const long long p = *(volatile long long*)&sh.pos;
+      if (p < 0) break;  // the walk has ended
+      const int d = (int)(p >> 32), r1 = (int)(p & 0xffffffff), r2 = d - r1;
+      const int stop = max(0, d - kTbAhead);
+      const int stop1 = max(0, r1 - kTbNodeAhead);
+      const int stop2 = max(0, r2 - kTbNodeAhead);
+      if (low <= stop && low1 <= stop1 && low2 <= stop2) continue;
+      // a lane a diagonal, 32 at once: its window's chunks one by one
+      for (int top = min(low - 1, d); top >= stop; top -= 32) {
+        const int dd = top - l;
+        int n = 0;
+        int64_t c0 = 0;
+        if (dd >= stop) {
+          const int lo = max(0, dd - V2 + 1);
+          const int a = max(lo, r1 - (d - dd)), b = min(min(dd, V1 - 1), r1);
+          const int64_t base = jb.bp_off + diag_offset(V1, V2, dd) - lo;
+          c0 = (base + a) >> 2;
+          // none where the walk cannot reach this diagonal
+          n = a <= b ? (int)(((base + b) >> 2) - c0 + 1) : 0;
+        }
+        const uint32_t row =
+            smem_addr(sh.ring + (dd & (kTbRing - 1)) * kTbCols);
+        const int col = (int)((4 * c0) & (kTbCols - 1));
+        for (int i = 0; i < n; ++i)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                           row + 4 * ((col + 4 * i) & (kTbCols - 1))),
+                       "l"(bp + 4 * (c0 + i))
+                       : "memory");
+      }
+      stage_words(delta1, V1, K1, sh.words[0], min(low1 - 1, r1), stop1, l);
+      stage_words(delta2, V2, K2, sh.words[1], min(low2 - 1, r2), stop2, l);
+      asm volatile("cp.async.commit_group;\n\tcp.async.wait_all;" :::
+                   "memory");
+      __syncwarp();
+      low = min(low, stop);
+      low1 = min(low1, stop1);
+      low2 = min(low2, stop2);
+      if (l == 0) {
+        asm volatile("fence.acq_rel.cta;" ::: "memory");
+        st_release(&sh.landed[0], low);
+        st_release(&sh.landed[1], low1);
+        st_release(&sh.landed[2], low2);
+      }
+      if (low == 0 && low1 == 0 && low2 == 0) break;
+    }
+    return;
+  }
+
+  // the walker
+  const uint32_t full1 = (uint32_t)V1 * (uint32_t)(V1 + 1) >> 1;
+  const uint32_t boff = (uint32_t)jb.bp_off;
+  int r1 = r1_0, r2 = r2_0, d = r1 + r2, comp = 0, k = 0, pa = 0, pb = 0;
+  int kind = kExitLost, rd = d + 1, rn1 = r1 + 1, rn2 = r2 + 1;
+  int2* pairs = (int2*)rows;
+  while (k < V1 + V2) {
+    if (d < rd || r1 < rn1 || r2 < rn2) {  // not published yet: wait
+      do {
+        rd = ld_acquire(&sh.landed[0]);
+        rn1 = ld_acquire(&sh.landed[1]);
+        rn2 = ld_acquire(&sh.landed[2]);
+      } while (d < rd || r1 < rn1 || r2 < rn2);
+    }
+    const uint32_t lo = (uint32_t)max(0, d - V2 + 1);
+    const int v = sh.ring[(d & (kTbRing - 1)) * kTbCols +
+                          ((boff + diag_offset_lo(V1, V2, full1, d) + r1 -
+                            lo) & (kTbCols - 1))];
+    const int w1 = sh.words[0][r1 & (kTbNodes - 1)];
+    const int w2 = sh.words[1][r2 & (kTbNodes - 1)];
+    const int dt = sh.diag_tab[v & 255];
+    const int it = sh.gap_tab[(v >> 8) & 1023];
+    const int dtb = sh.gap_tab[(v >> 18) & 1023];
+    const int c = comp != 0 ? comp : dt & 7;
+    const bool diag = c == 0, ins = c & 1;
+    // a gap piece's digit: k | open << 4; I pieces 1, 3, 5, D 2, 4, 6
+    const int g = ((ins ? it : dtb) >> ((8 * ((c - 1) >> 1)) & 31)) & 255;
+    const int k1 = diag ? (dt >> 8) & 255 : g & 15;
+    const int k2 = diag ? dt >> 16 : g & 15;
+    const bool use1 = diag || ins, use2 = diag || !ins;
+    const bool b1 = use1 && k1 >= K1, b2 = use2 && k2 >= K2;
+    if ((k & 31) == l) {
+      pa = use1 ? r1 : -1;
+      pb = use2 ? r2 : -1;
+    }
+    if ((k & 31) == 31) pairs[cap + 2 - k + 31 - l] = make_int2(pa, pb);
+    ++k;
+    r1 -= use1 && !b1 ? delta_of(w1, k1) : 0;
+    r2 -= use2 && !b2 ? delta_of(w2, k2) : 0;
+    if (b1 || b2) {
+      kind = b1 && b2 ? kExitCorner : b1 ? kExitRow : kExitCol;
+      break;
+    }
+    comp = diag || (g >> 4) ? 0 : c;
+    d = r1 + r2;
+    if (l == 0) *(volatile long long*)&sh.pos = ((long long)d << 32) | r1;
+  }
+  if (l < (k & 31)) pairs[cap + 2 - (k & ~31) - l] = make_int2(pa, pb);
+  if (l == 0) {
+    rows[0] = k;
+    rows[1] = kind;
+    rows[2] = r1;
+    rows[3] = r2;
+    rows[4] = best_v;
+    rows[5] = best;
+    *(volatile long long*)&sh.pos = -1;  // the copier may stop
+  }
 }
 
 }  // namespace
@@ -656,12 +829,24 @@ extern "C" int popoa_dag_fill_launch(const int* table, const int* data,
   return (int)cudaGetLastError();
 }
 
+// The traceback over `n_jobs` jobs, one block of two warps each, with its
+// ring and windows in dynamic shared memory. (`threads` must be 64; bp must
+// be 16-byte aligned and hold ops/popoa_dag.py::BP_SPARE entries past the
+// last job's cells.)
 extern "C" int popoa_dag_traceback_launch(const int* bp, const int* sinkm,
                                           const int* table, const int* data,
                                           int* out, int n_jobs, int cap,
                                           int threads, void* stream) {
-  const int blocks = (n_jobs + threads - 1) / threads;
-  popoa_dag_traceback_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      bp, sinkm, table, data, out, n_jobs, cap);
+  if (threads != kTbThreads || n_jobs < 0 || cap < 0 ||
+      ((uintptr_t)bp & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_jobs == 0) return (int)cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      popoa_dag_traceback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(TbShared));
+  if (err != cudaSuccess) return (int)err;
+  popoa_dag_traceback_kernel<<<n_jobs, threads, sizeof(TbShared),
+                               (cudaStream_t)stream>>>(bp, sinkm, table, data,
+                                                       out, cap);
   return (int)cudaGetLastError();
 }

@@ -78,6 +78,8 @@ N_COLS = 24
 G1_LAB, G1_SRC, G1_BCOLM, G1_BDIAG, G1_BDIAGK1, G1_SINK, G1_DELTA = range(7)
 G2_LAB, G2_SRC, G2_BROWM, G2_SINK, G2_DELTA = range(5)
 HEADER_ROWS = 3
+# bp entries past the last job's cells (launch_sizes)
+BP_SPARE = 3
 
 # how a traceback walk ended
 _EXIT_ROW = 1       # walk continues on the boundary row (r1 == V1)
@@ -363,11 +365,14 @@ def job_fields(table: torch.Tensor) -> np.ndarray:
 
 
 def launch_sizes(table_np: np.ndarray):
-    """(bp entries, sink-M entries, traceback cap) of one launch."""
+    """(bp entries, sink-M entries, traceback cap) of one launch. bp holds
+    BP_SPARE entries past the last job's cells: the traceback copies whole
+    16-byte chunks, and a window's last chunk may reach that far."""
     if not len(table_np):
         return 0, 0, 0
     t = table_np
-    return (int((t[:, COL_BP_LO] + t[:, COL_V1] * t[:, COL_V2]).max()),
+    return (int((t[:, COL_BP_LO] + t[:, COL_V1] * t[:, COL_V2]).max())
+            + BP_SPARE,
             int((t[:, COL_SINKM] + t[:, COL_N1] * t[:, COL_N2]).max()),
             int((t[:, COL_V1] + t[:, COL_V2]).max()))
 

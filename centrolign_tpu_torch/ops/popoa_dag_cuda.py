@@ -11,7 +11,9 @@ JAX package's compile buckets and its padded, reversed graph-2 arrays have
 no counterpart here. The fill's lanes run along each job's short side
 (`lane_sides`), a launch's threads hold the widest job's lanes
 (`fill_lanes`), and its per-job state (`_ring_ints`) lies in shared memory
-where it fits, else in global scratch (`dag_job_table`).
+where it fits, else in global scratch (`dag_job_table`). The traceback's
+shared-memory ring and windows are the same for every job; its copier is
+modelled here (`TracebackCopier`) for the CPU tests.
 
 On CUDA tensors the wrappers launch csrc/popoa_dag.cu or raise; on CPU
 tensors they run the plain versions of ops/popoa_dag.py.
@@ -31,7 +33,7 @@ from .popoa_dag import (COL_BP_HI, COL_BP_LO, COL_G1, COL_G2, COL_GE, COL_GO,
                         COL_N2, COL_NPW, COL_R, COL_SCRATCH_HI,
                         COL_SCRATCH_LO, COL_SINKM, COL_SINKPOS, COL_V1,
                         COL_V2, G1_DELTA, G2_DELTA, HEADER_ROWS, MAX_PW,
-                        N_COLS, job_fields, launch_sizes,
+                        N_COLS, diag_offset, job_fields, launch_sizes,
                         popoa_dag_fill_plain, popoa_dag_traceback_plain)
 
 # kernel launches (CUDA only) and jobs dispatched, since the last reset
@@ -42,7 +44,16 @@ DISPATCHED_JOBS = 0
 # lanes a fill thread holds -> most threads a block may have
 # (csrc/popoa_dag.cu, max_threads)
 FILL_THREADS = {1: 512, 2: 512, 4: 640, 8: 1024}
+# The traceback (csrc/popoa_dag.cu, kTb* and TbShared): a block of a walking
+# warp and a copier warp per job. Its shared memory holds a ring of TB_RING
+# rows of TB_COLS backpointers, the reachable cells of the TB_AHEAD
+# diagonals below the walk, and per graph a window of TB_NODES delta words,
+# the TB_NODE_AHEAD nodes below the walk staged; then two decode tables
+# (256 and 1024 ints) and 40 bytes of the walk's state.
 TRACEBACK_THREADS = 64
+TB_AHEAD, TB_RING, TB_COLS = 96, 128, 128
+TB_NODES, TB_NODE_AHEAD = 2048, 1024
+TB_SMEM_BYTES = 4 * (TB_RING * TB_COLS + 2 * TB_NODES + 256 + 1024) + 40
 # dynamic shared memory a block may have on sm_90 (227 KB), and the bytes of
 # it the fill's kernel keeps for itself (static)
 SMEM_LIMIT = 232448
@@ -172,6 +183,92 @@ def pack_dag_jobs(jobs) -> torch.Tensor:
         if parts else np.zeros(0, np.int32))
 
 
+def _diag_offset_lo(V1: int, V2: int, d: int) -> int:
+    """diag_offset(V1, V2, d) modulo 2^31 as the traceback's walker
+    computes it, in wrapping 32-bit arithmetic (diag_offset_lo)."""
+    m = 0xFFFFFFFF
+    full1 = ((V1 * (V1 + 1)) & m) >> 1
+    a = ((d * (d + 1)) & m) >> 1 if d <= V1 else (full1 + (d - V1) * V1) & m
+    t = d - V2 if d > V2 else 0
+    return (a - (((t * (t + 1)) & m) >> 1)) & m
+
+
+class TracebackCopier:
+    """A model of the traceback's copier warp over one job (csrc/
+    popoa_dag.cu): `round(d, r1)` is one round at the walk's position (d,
+    r1), issuing the cells each diagonal within TB_AHEAD can reach as whole
+    16-byte chunks into the ring, staging the nodes within TB_NODE_AHEAD
+    into each graph's window and publishing the lowest of each that landed;
+    `read(r1, r2)` is what the walker's step at (r1, r2) loads. Ring slots
+    hold (diagonal, global bp index) and window slots the node, so a replay
+    can check what each read finds."""
+
+    def __init__(self, V1: int, V2: int, bp_off: int, r1: int, r2: int):
+        self.V1, self.V2, self.bp_off = V1, V2, bp_off
+        self.low = [r1 + r2 + 1, r1 + 1, r2 + 1]
+        self.landed = list(self.low)
+        self.ring = {}
+        self.words = ({}, {})
+        self.last_entry = -1   # the furthest bp entry a chunk read
+        self.most_chunks = 0   # the most chunks one diagonal took
+
+    def base(self, d: int) -> int:
+        """Global bp index of cell r1 = 0 of diagonal d (cell r1 at + r1)."""
+        return (self.bp_off + int(diag_offset(self.V1, self.V2, d))
+                - max(0, d - self.V2 + 1))
+
+    def round(self, d: int, r1: int) -> list:
+        """One round at the walk's position. Returns the entries it
+        overwrote that the walk at (d, r1) may still read (none is
+        right)."""
+        V1, V2 = self.V1, self.V2
+        r2 = d - r1
+        stops = (max(0, d - TB_AHEAD), max(0, r1 - TB_NODE_AHEAD),
+                 max(0, r2 - TB_NODE_AHEAD))
+        live = []
+        for dd in range(min(self.low[0] - 1, d), stops[0] - 1, -1):
+            lo = max(0, dd - V2 + 1)
+            a, b = max(lo, r1 - (d - dd)), min(dd, V1 - 1, r1)
+            if a > b:
+                continue
+            base = self.base(dd)
+            c0, c1 = (base + a) >> 2, (base + b) >> 2
+            self.most_chunks = max(self.most_chunks, c1 - c0 + 1)
+            self.last_entry = max(self.last_entry, 4 * c1 + 3)
+            for e in range(4 * c0, 4 * c1 + 4):
+                slot = (dd % TB_RING, e % TB_COLS)
+                old = self.ring.get(slot)
+                if old is not None and old[0] != dd and old[0] <= d:
+                    live.append(old)
+                self.ring[slot] = (dd, e)
+        for g, r in ((0, r1), (1, r2)):
+            for p in range(min(self.low[g + 1] - 1, r), stops[g + 1] - 1, -1):
+                old = self.words[g].get(p % TB_NODES)
+                if old is not None and old != p and old <= r:
+                    live.append(old)
+                self.words[g][p % TB_NODES] = p
+        self.low = [min(x, s) for x, s in zip(self.low, stops)]
+        self.landed = list(self.low)
+        return live
+
+    def ready(self, r1: int, r2: int) -> bool:
+        """Whether the walker at (r1, r2) may step without waiting."""
+        return (r1 + r2 >= self.landed[0] and r1 >= self.landed[1]
+                and r2 >= self.landed[2])
+
+    def read(self, r1: int, r2: int):
+        """(ring entry, graph-1 window entry, graph-2 window entry) that the
+        walker's step at (r1, r2) loads, the ring column computed as the
+        kernel does."""
+        d = r1 + r2
+        lo = max(0, d - self.V2 + 1)
+        col = (self.bp_off + _diag_offset_lo(self.V1, self.V2, d) + r1
+               - lo) % TB_COLS
+        return (self.ring.get((d % TB_RING, col)),
+                self.words[0].get(r1 % TB_NODES),
+                self.words[1].get(r2 % TB_NODES))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("popoa_dag")
     if not getattr(lib, "declared", False):
@@ -233,7 +330,9 @@ def popoa_dag_traceback(bp: torch.Tensor, sinkm: torch.Tensor,
                         table: torch.Tensor, data: torch.Tensor,
                         cap: int) -> torch.Tensor:
     """Walk every job from its best sink pair. Returns the (n, cap + 3, 2)
-    int32 rows described in ops/popoa_dag.py."""
+    int32 rows described in ops/popoa_dag.py. A CUDA launch runs one block
+    of TRACEBACK_THREADS per job; `bp` comes from popoa_dag_fill (16-byte
+    aligned, with launch_sizes' spare entries)."""
     if table.device.type == "cpu":
         return popoa_dag_traceback_plain(bp, sinkm, table, data, cap)
     if table.device.type != "cuda":

@@ -47,6 +47,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    length, each with one block (C = 1) and split over a cluster (C = 8),
    bit-equal to the plain fill, with the time per diagonal step: where the
    two cross sets gotoh_cuda.CLUSTER_MIN_LANES;
+6c. the DAG traceback alone on the DAG bag's 2400 x 2400 job and on
+   five.fasta's longest walk, bit-equal to the host walk, with its steps
+   and the time per step;
 7. the device tier against host `po` below `device_min_cells`: pair.fasta
    again with the threshold at 10,000 cells (the same CIGAR); the chain
    gaps of 10,000 to 160,000 cells it dispatched are aligned by host `po`
@@ -688,8 +691,12 @@ def main() -> int:
     five_summary = metrics.summary()
     print("five.fasta aligner counters: " + json.dumps(five_summary),
           flush=True)
+    longest = (None, -1)  # five.fasta's longest walk: (job, steps)
     for part in dag_dispatched:
         res, rows = compare_dag(part, device, reps=5)
+        k = int(rows[:, 0, 0].argmax())
+        if rows[k, 0, 0] > longest[1]:
+            longest = (part[k], int(rows[k, 0, 0]))
         dag_work(part, rows, table["popoa_dag_fill"]["work"],
                  table["popoa_dag_traceback"]["work"])
         for name, (err, ms, pms) in res.items():
@@ -819,6 +826,26 @@ def main() -> int:
     faster = [s_ for s_, ms1, msc in sweep if msc < ms1]
     print(f"cluster split faster at short sides {sorted(faster)}; "
           f"CLUSTER_MIN_LANES = {gc.CLUSTER_MIN_LANES}", flush=True)
+
+    # 6c. the DAG traceback alone on the bag's 2400 x 2400 job and on
+    # five.fasta's longest walk: one block's walk, step by step
+    from centrolign_tpu_torch.ops import popoa_dag as plain_dag
+    big = next(j for j in dag_bag if j.t1.V == j.t2.V == 2400)
+    for label, job in (("the DAG bag's 2400 x 2400 job", big),
+                       ("five.fasta's longest walk", longest[0])):
+        dtab, ddata, (bp_size, sm_size, scratch, smem, cap, lanes) = \
+            pdc.dag_launch([job], device)
+        bp_d, sm_d = pdc.popoa_dag_fill(dtab, ddata, bp_size, sm_size,
+                                        scratch, smem, lanes)
+        rows_d, tb_ms = timed(lambda: pdc.popoa_dag_traceback(
+            bp_d, sm_d, dtab, ddata, cap), 20)
+        require(torch.equal(rows_d, plain_dag.popoa_dag_traceback_plain(
+            bp_d, sm_d, dtab, ddata, cap)), f"the DAG traceback of {label} "
+            f"differs from the host walk")
+        tb_steps = int(rows_d[0, 0, 0])
+        print(f"popoa_dag_traceback on {label} ({job.t1.V} x {job.t2.V}): "
+              f"bit-equal; {tb_ms:.3f} ms over {tb_steps} steps, "
+              f"{tb_ms / tb_steps * 1e3:.4f} us a step ({card})", flush=True)
 
     # 7. device tier against host po on the gaps below device_min_cells
     from centrolign_tpu_torch.graph import BaseGraph

@@ -329,3 +329,149 @@ def test_dag_fill_layout(jobs):
         assert max(4 * pdc._ring_ints(j) for j in jobs) == smem
     else:
         assert scratch > 0
+
+
+def _replay_traceback(V1, V2, bp_off, bp_size, walk):
+    """csrc/popoa_dag.cu's traceback copier (TracebackCopier) replayed
+    beside a walk's positions, one round every `every` steps (1, 7 and 60:
+    a copier as fast as the walk, or lagging) and whenever the walker would
+    wait: every cell and node the walker reads was issued and published
+    before the read, no round overwrites an entry the walk may still read,
+    a diagonal's window fits a ring row,
+    and every chunk stays inside bp with its spare entries."""
+    from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+    for every in (1, 7, 60):
+        cop = pdc.TracebackCopier(V1, V2, bp_off, *walk[0])
+        for k, (r1, r2) in enumerate(walk):
+            d = r1 + r2
+            if k % every == 0 or not cop.ready(r1, r2):
+                assert cop.round(d, r1) == []
+            assert cop.ready(r1, r2)
+            assert cop.read(r1, r2) == ((d, cop.base(d) + r1), r1, r2)
+        assert 4 * cop.most_chunks <= pdc.TB_COLS
+        assert cop.last_entry < bp_size
+
+
+def _random_walk(rng, t1, t2, r1, r2):
+    """Positions of a walk from (r1, r2) by a traceback's moves (diagonal,
+    I, D) through real predecessor slots, the longest span half the time,
+    until neither side has a predecessor."""
+    def back(t, r):
+        ds = [int(x) for x in t.delta[:, r] if x > 0]
+        if not ds:
+            return 0
+        return max(ds) if rng.random() < 0.5 else ds[rng.integers(len(ds))]
+
+    walk = []
+    while True:
+        walk.append((r1, r2))
+        a, b = back(t1, r1), back(t2, r2)
+        moves = [m for m, ok in (("M", a and b), ("I", a), ("D", b)) if ok]
+        if not moves:
+            return walk
+        m = moves[0] if rng.random() < 0.6 else moves[rng.integers(len(moves))]
+        r1 -= a if m in "MI" else 0
+        r2 -= b if m in "MD" else 0
+
+
+def _walk_positions(rows, r1, r2):
+    """The positions a traceback's steps started from, from its rows: a
+    pair's coordinate is the position's where the step used that side;
+    otherwise the side's next used coordinate, or the exit's."""
+    from centrolign_tpu_torch.ops.popoa_dag import GAP
+    count = int(rows[0, 0])
+    steps = rows[len(rows) - count:][::-1]
+    walk = np.empty((count, 2), np.int64)
+    nxt = [int(rows[1, 0]), int(rows[1, 1])]
+    for k in range(count - 1, -1, -1):
+        for s in (0, 1):
+            if steps[k, s] != GAP:
+                nxt[s] = int(steps[k, s])
+        walk[k] = nxt
+    assert tuple(walk[0]) == (r1, r2)
+    return [tuple(int(x) for x in p) for p in walk]
+
+
+@pytest.fixture(scope="module")
+def dag_bag_layout():
+    from centrolign_tpu_torch.ops import popoa_dag as dag
+    from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+    jobs = _dag_bag()
+    table, _, _ = pdc.dag_job_table(jobs)
+    t = dag.job_fields(table)
+    return jobs, t[:, dag.COL_BP_LO], dag.launch_sizes(t)[0]
+
+
+@pytest.fixture(scope="module")
+def small_dag_walks():
+    """Jobs at the envelope's extremes (in-degree 4 and span 32, a graph of
+    one node, one side much longer), through the plain fill and walk."""
+    import chip_smoke
+    from centrolign_tpu_torch.ops import popoa_dag as dag
+    from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+    rng = np.random.default_rng(11)
+    params = params_from_arrays(20, 80, np.array([60, 800, 2500]),
+                                np.array([30, 5, 1]))
+    shapes = [(150, 4, 32, 0, 0), (1, 1, 1, 0, 200), (1, 1, 1, 200, 0),
+              (20, 2, 4, 0, 400), (40, 4, 32, 300, 0)]
+    jobs = [chip_smoke.related_dag_job(rng, params.truncated(1 + k % 3), *s)
+            for k, s in enumerate(shapes)]
+    table, data, (bp_size, _, _, _, cap, _) = pdc.dag_launch(jobs, CPU)
+    bp, sinkm = dag.popoa_dag_fill_plain(table, data)
+    rows = dag.popoa_dag_traceback_plain(bp, sinkm, table, data, cap).numpy()
+    t = dag.job_fields(table)
+    walks = []
+    for job, row, r in zip(jobs, t, rows):
+        best = int(r[2, 1])
+        n2 = len(job.sink_pos2)
+        walks.append((job.t1.V, job.t2.V, int(row[dag.COL_BP_LO]),
+                      _walk_positions(r, int(job.sink_pos1[best // n2]),
+                                      int(job.sink_pos2[best % n2]))))
+    assert max(job.t1.K for job in jobs) == 4 == max(job.t2.K for job in jobs)
+    assert max(job.t1.S for job in jobs) == 32
+    return walks, bp_size
+
+
+@pytest.mark.parametrize("k", range(20))
+def test_dag_traceback_window_bag(dag_bag_layout, k):
+    """The copier beside random walks over chip_smoke's DAG bag, each job at
+    its offset in the bag's launch (the 2400 x 2400 job wraps both delta
+    windows)."""
+    jobs, offs, bp_size = dag_bag_layout
+    assert len(jobs) == 20
+    job = jobs[k]
+    rng = np.random.default_rng(k)
+    walk = _random_walk(rng, job.t1, job.t2, int(job.sink_pos1[-1]),
+                        int(job.sink_pos2[-1]))
+    _replay_traceback(job.t1.V, job.t2.V, int(offs[k]), bp_size, walk)
+
+
+@pytest.mark.parametrize("k", range(5), ids=["K4_S32", "V1_1", "V2_1",
+                                              "V2_long", "V1_long"])
+def test_dag_traceback_window_plain_walk(small_dag_walks, k):
+    """The copier beside the plain walk of jobs at the envelope's
+    extremes."""
+    walks, bp_size = small_dag_walks
+    V1, V2, off, walk = walks[k]
+    _replay_traceback(V1, V2, off, bp_size, walk)
+
+
+@pytest.mark.parametrize("V1, V2, K, S", [(5000, 3, 2, 32), (3, 5000, 4, 32),
+                                          (3000, 2500, 4, 32)])
+def test_dag_traceback_window_wide(V1, V2, K, S):
+    """The copier beside random walks on graphs far longer than a delta
+    window, at an offset past 2^32 backpointers (the walker's 32-bit ring
+    column), with the walk jumping the longest span half the time; the
+    traceback's shared memory fits a block."""
+    import chip_smoke
+    from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+    from centrolign_tpu_torch.ops.popoa_dag import BP_SPARE, DagTables
+    assert pdc.TB_SMEM_BYTES <= MAX_SHARED_BYTES
+    assert pdc.TB_NODE_AHEAD < pdc.TB_NODES and pdc.TB_AHEAD < pdc.TB_RING
+    rng = np.random.default_rng(V1 + V2)
+    t1, t2 = (DagTables(chip_smoke.dag_graph(rng, V, *((K, S) if V > S
+                                                         else (1, 1))), [0])
+              for V in (V1, V2))
+    off = (1 << 32) + 5
+    walk = _random_walk(rng, t1, t2, V1 - 1, V2 - 1)
+    _replay_traceback(V1, V2, off, off + V1 * V2 + BP_SPARE, walk)
