@@ -24,9 +24,13 @@ the reference's sparse algorithms compute the same optimum). The dense
 formulation is also the shape that maps onto the TPU: reachability and gap
 matrices are plain gathers + elementwise max-plus sweeps.
 
-Copy of centrolign_tpu/anchorer.py, without the opt-in device branches
-of _cdq_values and of sparse chaining (CENTROLIGN_TPU_DEVICE_CDQ and
-CENTROLIGN_TPU_DEVICE_CHAIN), which are not ported yet.
+Copy of centrolign_tpu/anchorer.py. Its two opt-in device branches, the
+SparseAffine CDQ value pass (CENTROLIGN_TPU_DEVICE_CDQ=1, ops/chain_cdq.py)
+and free-gap sparse chaining on chain graphs (CENTROLIGN_TPU_DEVICE_CHAIN=1,
+ops/chain_scan.py), run on the anchorer's `device` in place of the JAX
+package's device_ready() gate: the CUDA kernels on a card, their plain
+versions on the CPU, and the native engines when the device is None. A
+device failure raises; nothing falls back to the native engine.
 """
 
 from __future__ import annotations
@@ -106,6 +110,8 @@ class Anchorer:
     min_split_length: int = 128
     min_path_length_spread: int = 50
     max_split_match_set_size: int = 16
+    # where the opt-in device chaining runs (a torch.device; None: native)
+    device: object = None
 
     # ------------------------------------------------------------------
 
@@ -691,6 +697,89 @@ class Anchorer:
                                 xmerge1, xmerge2, psd1, psd2, scale)
         return chain
 
+    def _chain_sparse_scan_device(self, graph1, graph2, matches, num_sets,
+                                  weights, sources1, sources2, sinks1,
+                                  sinks2, masked):
+        """Device realization of free-gap sparse chaining for chain x chain
+        inputs (ops/chain_scan.py): the reference's per-path search-tree
+        sweep linearizes into one event scan when both graphs are single
+        chains (every calibration workload). Returns (rows, scores) in the
+        chain_sparse_parity format, or None when the inputs are outside the
+        chain envelope (the caller then takes the native engine). Enabled
+        by CENTROLIGN_TPU_DEVICE_CHAIN=1 and a device; the scan runs on
+        self.device."""
+        from .ops.chain_scan import sparse_chain_scan
+
+        def is_chain(g):
+            return (g.node_size > 0 and bool((g.out_degrees() <= 1).all())
+                    and bool((g.in_degrees() <= 1).all())
+                    and int((g.in_degrees() == 0).sum()) == 1)
+
+        if not (is_chain(graph1) and is_chain(graph2)):
+            return None
+        from .native import reference_topological_order
+        order1 = reference_topological_order(graph1)
+        order2 = reference_topological_order(graph2)
+        pos1 = np.empty(graph1.node_size, dtype=_I64)
+        pos1[order1] = np.arange(graph1.node_size)
+        pos2 = np.empty(graph2.node_size, dtype=_I64)
+        pos2[order2] = np.arange(graph2.node_size)
+
+        s_idx, i1s, i2s = [], [], []
+        st1, en1, st2, en2, ws = [], [], [], [], []
+        for s in range(num_sets):
+            m = matches[s]
+            for i in range(len(m.walks1)):
+                for j in range(len(m.walks2)):
+                    if masked and (s, i, j) in masked:
+                        continue
+                    s_idx.append(s)
+                    i1s.append(i)
+                    i2s.append(j)
+                    st1.append(m.walks1[i][0])
+                    en1.append(m.walks1[i][-1])
+                    st2.append(m.walks2[j][0])
+                    en2.append(m.walks2[j][-1])
+                    ws.append(weights[s])
+        n = len(s_idx)
+        if n == 0:
+            return np.empty((0, 3), dtype=_I64), np.empty(0)
+        st1 = np.array(st1, dtype=_I64)
+        en1 = np.array(en1, dtype=_I64)
+        st2 = np.array(st2, dtype=_I64)
+        en2 = np.array(en2, dtype=_I64)
+
+        def reach_gate(nodes1, nodes2, given1, given2, flip):
+            # chain reachability == strict topological precedence
+            if given1 is None:
+                return np.ones(n, dtype=bool)
+            ok1 = np.zeros(n, dtype=bool)
+            ok2 = np.zeros(n, dtype=bool)
+            for g in np.asarray(given1, dtype=_I64):
+                if flip:
+                    ok1 |= (g == nodes1) | (pos1[nodes1] < pos1[g])
+                else:
+                    ok1 |= (g == nodes1) | (pos1[g] < pos1[nodes1])
+            for g in np.asarray(given2, dtype=_I64):
+                if flip:
+                    ok2 |= (g == nodes2) | (pos2[nodes2] < pos2[g])
+                else:
+                    ok2 |= (g == nodes2) | (pos2[g] < pos2[nodes2])
+            return ok1 & ok2
+
+        reach_src = reach_gate(st1, st2, sources1, sources2, False)
+        reach_snk = reach_gate(en1, en2, sinks1, sinks2, True)
+
+        chain, _score = sparse_chain_scan(
+            pos1[st1], pos1[en1], pos2[st2], pos2[en2],
+            np.asarray(ws), reach_src, reach_snk, self.device)
+        rows = np.empty((len(chain), 3), dtype=_I64)
+        scores = np.empty(len(chain))
+        for k, a in enumerate(chain):
+            rows[k] = (s_idx[a], i1s[a], i2s[a])
+            scores[k] = weights[s_idx[a]]
+        return rows, scores
+
     def _chain_parity(self, matches, graph1, graph2, xmerge1, xmerge2,
                       sources1, sources2, sinks1, sinks2, algorithm, scale,
                       masked_matches, num_sets, num_anchors, max_match_size):
@@ -721,9 +810,19 @@ class Anchorer:
             for m in matches[:num_sets]] + [0.0] * (len(matches) - num_sets))
 
         if algorithm == ChainAlgorithm.Sparse:
-            rows, scores = chain_sparse_parity(
-                graph1, matches, num_sets, weights, xmerge1, xmerge2,
-                sources1, sources2, sinks1, sinks2, local_masked)
+            import os
+            device_rows = None
+            if (os.environ.get("CENTROLIGN_TPU_DEVICE_CHAIN") == "1"
+                    and self.device is not None):
+                device_rows = self._chain_sparse_scan_device(
+                    graph1, graph2, matches, num_sets, weights,
+                    sources1, sources2, sinks1, sinks2, local_masked)
+            if device_rows is not None:
+                rows, scores = device_rows
+            else:
+                rows, scores = chain_sparse_parity(
+                    graph1, matches, num_sets, weights, xmerge1, xmerge2,
+                    sources1, sources2, sinks1, sinks2, local_masked)
             fvals = np.zeros((len(rows), 3))
             fvals[:, 0] = scores
             grows = np.zeros((len(rows), 2), dtype=_I64)
@@ -1114,9 +1213,19 @@ class Anchorer:
         return arows, fvals
 
     def _cdq_values(self, ps1, pe1, ps2, pe2, aw, init, go, ge, scale):
-        """CDQ value pass: dp/bp/tie/struct/stored/qshift per anchor, on the
-        native engine (native/chain_affine_cdq.cpp). The JAX package's
-        opt-in device realization (ops/chain_cdq.py) is not ported yet."""
+        """CDQ value pass: dp/bp/tie/struct/stored/qshift per anchor.
+
+        With CENTROLIGN_TPU_DEVICE_CDQ=1 and a device, the device
+        realization (ops/chain_cdq.py: the CUDA scan of csrc/chain_cdq.cu on
+        a card, its plain version on the CPU); a failure there raises.
+        Otherwise the native engine (native/chain_affine_cdq.cpp). Outputs
+        are bit-identical between the two (tests/test_torch_chain_cdq.py)."""
+        import os
+        if (os.environ.get("CENTROLIGN_TPU_DEVICE_CDQ") == "1"
+                and self.device is not None):
+            from .ops.chain_cdq import chain_cdq_device
+            return chain_cdq_device(ps1, pe1, ps2, pe2, aw, init, go, ge,
+                                    scale, self.device)
         from .native import chain_affine_cdq
         return chain_affine_cdq(ps1, pe1, ps2, pe2, aw, init, go, ge,
                                 scale)

@@ -122,9 +122,11 @@ def main(argv=None) -> int:
 
     n_hosts = args.hosts if args.hosts is not None else int(
         os.environ.get("CENTROLIGN_TPU_HOSTS", "1"))
-    if n_hosts > 1 or os.environ.get("CENTROLIGN_TPU_EXECUTOR") == "jaxdist":
-        print("error: multi-host execution (--hosts > 1, "
-              "CENTROLIGN_TPU_EXECUTOR=jaxdist) is not yet ported",
+    if n_hosts > 1:
+        # the JAX package hands N > 1 hosts to its pool executor, or to its
+        # jax.distributed one (CENTROLIGN_TPU_EXECUTOR=jaxdist, more than 2
+        # sequences); with one host it runs serially whatever the executor
+        print("error: multi-host execution (--hosts > 1) is not yet ported",
               file=sys.stderr)
         return 1
     try:

@@ -10,7 +10,7 @@ subset to the diagonal, a gap-free chain is computed, and the score scale is
 the mean of the per-leaf (weight / anchored length) ratios.
 
 Copy of centrolign_tpu/core.py, with a `device` argument that places its
-stitcher's device tier.
+stitcher's device tier and its anchorer's opt-in device chaining.
 """
 
 from __future__ import annotations
@@ -209,13 +209,15 @@ def leaf_bond_alignments(sub, scale, matches, chain, anchorer, bonder,
 class Core:
     def __init__(self, names_and_sequences, tree: Tree,
                  device: torch.device | str | None = None):
-        """`device` places the stitcher's device tier: a torch.device, or a
-        mode of device.resolve_device ("cuda", "cpu", "none"; None reads
+        """`device` places the stitcher's device tier and the anchorer's
+        opt-in device chaining: a torch.device, or a mode of
+        device.resolve_device ("cuda", "cpu", "none"; None reads
         CENTROLIGN_TORCH_DEVICE)."""
         if not isinstance(device, torch.device):
             device = resolve_device(device)
         self.score_function = ScoreFunction()
-        self.anchorer = Anchorer(score_function=self.score_function)
+        self.anchorer = Anchorer(score_function=self.score_function,
+                                 device=device)
         self.partitioner = Partitioner(score_function=self.score_function)
         self.stitcher = Stitcher(device=device)
         self.bonder = Bonder()

@@ -281,9 +281,12 @@ class _DagJob:
 
     @property
     def eligible(self):
+        """Inside the envelope, and accepted by a launch of its own
+        (popoa_dag_cuda.launchable); any other job goes to host `po`."""
+        from .popoa_dag_cuda import launchable
         return bool(self.t1.eligible and self.t2.eligible
                     and len(self.sinks1) and len(self.sinks2)
-                    and self.params.num_pw <= MAX_PW)
+                    and self.params.num_pw <= MAX_PW and launchable(self))
 
     def prepare(self):
         """Boundary vectors and the sink positions the fill needs."""
@@ -651,7 +654,8 @@ def popoa_dag_traceback_plain(bp: torch.Tensor, sinkm: torch.Tensor,
 
 def popoa_dag_batch(jobs, device: torch.device):
     """jobs: list of _DagJob (all eligible, prepared). One fill and one
-    traceback launch on `device` (the plain versions on the CPU). Returns
+    traceback launch on `device` (the plain versions on the CPU), more
+    where the jobs pass one launch's 2^31 entries. Returns
     per job (alignment, score) equal to ops.popoa_ref.popoa, or None when
     the job has no interior alignment."""
     from .popoa_dag_cuda import popoa_dag_align_jobs

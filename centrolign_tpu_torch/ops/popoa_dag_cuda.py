@@ -42,8 +42,9 @@ TRACEBACK_LAUNCHES = 0
 DISPATCHED_JOBS = 0
 
 # lanes a fill thread holds -> most threads a block may have
-# (csrc/popoa_dag.cu, max_threads)
+# (csrc/popoa_dag.cu, max_threads), and the widest short side a block holds
 FILL_THREADS = {1: 512, 2: 512, 4: 640, 8: 1024}
+MAX_LANES = max(r * n for r, n in FILL_THREADS.items())
 # The traceback (csrc/popoa_dag.cu, kTb* and TbShared): a block of a walking
 # warp and a copier warp per job. Its shared memory holds a ring of TB_RING
 # rows of TB_COLS backpointers, the reachable cells of the TB_AHEAD
@@ -104,9 +105,44 @@ def fill_lanes(jobs):
     for R, most in FILL_THREADS.items():
         if -(-widest // R) <= most:
             return R, 32 * -(-widest // (32 * R))
-    raise ValueError(f"a DAG fill block holds at most "
-                     f"{max(r * n for r, n in FILL_THREADS.items())} lanes; "
+    raise ValueError(f"a DAG fill block holds at most {MAX_LANES} lanes; "
                      f"a job's short side is {widest}")
+
+
+def _launch_entries(job, n1: int, n2: int):
+    """(data, sink-M) entries `job` adds to a launch (dag_job_table) with
+    n1 x n2 sink positions."""
+    t1, t2 = job.t1, job.t2
+    return ((G1_DELTA + t1.delta.shape[0]) * t1.V
+            + (G2_DELTA + t2.delta.shape[0]) * t2.V + n1 + n2, n1 * n2)
+
+
+def launchable(job) -> bool:
+    """Whether fill_lanes and dag_job_table accept `job` in a launch of its
+    own: short side <= MAX_LANES, gap penalties below MAX_PENALTY, graphs
+    under MAX_NODES nodes, data and sink-M entries below 2^31 (counted
+    with every given sink, a bound on its sink positions)."""
+    t1, t2, p = job.t1, job.t2, job.params
+    entries = _launch_entries(job, len(job.sinks1), len(job.sinks2))
+    return (min(t1.V, t2.V) <= MAX_LANES
+            and max(p.gap_open) + max(p.gap_extend) < MAX_PENALTY
+            and max(t1.V, t2.V) < MAX_NODES
+            and max(entries) < 1 << 31)
+
+
+def launch_groups(jobs) -> list:
+    """Prepared launchable `jobs` cut into consecutive runs, each within
+    one launch's 2^31 data and sink-M entries (dag_job_table)."""
+    groups, data, sinkm = [], 0, 0
+    for job in jobs:
+        d, m = _launch_entries(job, len(job.sink_pos1), len(job.sink_pos2))
+        if not groups or data + d >= 1 << 31 or sinkm + m >= 1 << 31:
+            groups.append([])
+            data = sinkm = 0
+        groups[-1].append(job)
+        data += d
+        sinkm += m
+    return groups
 
 
 def _split64(x: int):
@@ -369,15 +405,18 @@ def dag_launch(jobs, device: torch.device):
 
 
 def popoa_dag_align_jobs(jobs, device: torch.device) -> list:
-    """One fill and one traceback launch over `jobs` on `device`, then one
-    copy to the host. Returns each job's traceback rows (numpy)."""
+    """One fill and one traceback launch over each of `jobs`'
+    launch_groups on `device` (one group unless the jobs pass a launch's
+    2^31 entries), each followed by one copy to the host. Returns each
+    job's traceback rows (numpy)."""
     global DISPATCHED_JOBS
     DISPATCHED_JOBS += len(jobs)
-    if not jobs:
-        return []
-    table, data, (bp_size, sinkm_size, scratch, smem, cap, lanes) = \
-        dag_launch(jobs, device)
-    bp, sinkm = popoa_dag_fill(table, data, bp_size, sinkm_size, scratch,
-                               smem, lanes)
-    rows = popoa_dag_traceback(bp, sinkm, table, data, cap)
-    return list(rows.cpu().numpy())
+    out = []
+    for group in launch_groups(jobs):
+        table, data, (bp_size, sinkm_size, scratch, smem, cap, lanes) = \
+            dag_launch(group, device)
+        bp, sinkm = popoa_dag_fill(table, data, bp_size, sinkm_size,
+                                   scratch, smem, lanes)
+        rows = popoa_dag_traceback(bp, sinkm, table, data, cap)
+        out += list(rows.cpu().numpy())
+    return out

@@ -25,6 +25,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    warp: bit-equal backpointers, sink M and traceback rows (exact);
 3c. the single-problem Gotoh entry against its plain version on three
    pairs, one with a short side over 4096 (exact);
+3d. the device-chaining kernels against their plain versions on a bag
+   (exact: dp, bp, tie, struct, stored and dp, winners bit-equal): the CDQ
+   scan on one launch of 7 problems (n 0, 1, 8, two tie-dense, anchors
+   that end before they start, n 1,100 > the block's 1,024 threads) and
+   on n 4,096 scanning the prefix and every row; the event scan on n 1,
+   8, 300 tie-dense, 1,100 and 4,096 with its table in shared memory and
+   on n 40,000 with it in device memory;
 4. the pairwise path: the port's CLI on benchdata/pair.fasta; the CIGAR
    must equal benchdata/ref_pair.cigar.txt byte for byte, both Gotoh
    kernels must have launched, and the device tier must have taken 28 gaps
@@ -54,6 +61,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    again with the threshold at 10,000 cells (the same CIGAR); the chain
    gaps of 10,000 to 160,000 cells it dispatched are aligned by host `po`
    and by one fill + traceback dispatch on the card, both timed;
+8. the pairwise path with device chaining: pair.fasta with
+   CENTROLIGN_TPU_DEVICE_CDQ=1 and CENTROLIGN_TPU_DEVICE_CHAIN=1; the CIGAR
+   must equal the reference, the CDQ scan must have launched once over
+   145,331 anchors and the event scan 3 times over 24,025, 22,506 and
+   145,331; the CDQ values must be bit-equal to the native engine's (bp
+   where untied) and the free-gap chains identical to the native parity
+   engine's; each kernel is timed at the path's problems and held against
+   its plain version there (bit-equal), beside the native engines' time,
+   its bound (the work the function needs: the native CDQ engine's
+   O(N log^2 N) steps, a prefix-maximum tree's O(E log n)) and the bound
+   of this design's own rescan;
 and at the end neither jax nor any module of the JAX package may be in the
 process. Each path runs with the launch counters set to 0 just before it
 and read just after. The last three lines of standard output are the
@@ -77,6 +95,8 @@ FIVE_TREE = os.path.join(BENCH, "five.nwk")
 REF_GFA = os.path.join(BENCH, "ref_five.gfa")
 GOTOH_SRC = "centrolign_tpu_torch/csrc/gotoh.cu"
 DAG_SRC = "centrolign_tpu_torch/csrc/popoa_dag.cu"
+CDQ_SRC = "centrolign_tpu_torch/csrc/chain_cdq.cu"
+SCAN_SRC = "centrolign_tpu_torch/csrc/chain_scan.cu"
 # the TPU kernels (and lax device loops) these replace
 KERNELS = {
     "gotoh_fill": (GOTOH_SRC, "centrolign_tpu/ops/gotoh_pallas.py:602"),
@@ -85,10 +105,18 @@ KERNELS = {
                            "centrolign_tpu/ops/gotoh_pallas.py:177"),
     "popoa_dag_fill": (DAG_SRC, "centrolign_tpu/ops/popoa_dag.py:173"),
     "popoa_dag_traceback": (DAG_SRC, "centrolign_tpu/ops/popoa_dag.py:376"),
+    "chain_cdq_scan": (CDQ_SRC, "centrolign_tpu/ops/chain_cdq.py:58"),
+    "chain_scan_event": (SCAN_SRC, "centrolign_tpu/ops/chain_scan.py:53"),
 }
+SOURCES = ["gotoh", "popoa_dag", "chain_cdq", "chain_scan"]
 PAIR_GAPS, PAIR_CELLS = 28, 24_191_366
 FIVE_DAG_JOBS, FIVE_DAG_CELLS = 12, 2_731_723
 FIVE_CHAIN_JOBS, FIVE_CHAIN_CELLS = 88, 21_645_992
+# pair.fasta with device chaining: the CDQ value pass of the pair and the
+# free-gap chains of the two calibrations and of the pair
+CHAINING = {"CENTROLIGN_TPU_DEVICE_CDQ": "1", "CENTROLIGN_TPU_DEVICE_CHAIN": "1"}
+PAIR_CDQ_ANCHORS = (145_331,)
+PAIR_SCAN_ANCHORS = (24_025, 22_506, 145_331)
 # H100 SXM peaks for the bound: 3.35 TB/s of HBM; int32 on the CUDA cores
 # at 64 lanes per SM x 132 SMs x 1,980 MHz (one operation per lane per
 # clock; the tensor cores' int8 rate does not apply to these kernels)
@@ -486,6 +514,351 @@ def compare_dag(jobs, device, reps):
 
 
 # ---------------------------------------------------------------------------
+# device chaining
+
+
+def cdq_problem(rng, n, tie_dense=False, bent=False):
+    """A SparseAffine chain problem of n anchors shaped like
+    tests/test_chain_cdq.py's (default gap parameters): random, or on a grid
+    with equal weights so that maxima tie; `bent` makes a third of the
+    anchors end before they start on both chains (the kernel then scans
+    every row)."""
+    import numpy as np
+    if tie_dense:
+        p1 = rng.integers(1, 4000 // 24, n) * 24
+        p2 = p1 + rng.choice([-4, 0, 0, 4], n)
+        ln1 = ln2 = np.full(n, 16)
+        w = np.full(n, 16.0, dtype=np.float32)
+    else:
+        p1 = rng.integers(1, 40 * max(n, 1), n)
+        p2 = np.maximum(0, p1 + rng.integers(-40, 40, n))
+        ln1, ln2 = rng.integers(4, 40, n), rng.integers(4, 40, n)
+        w = (rng.integers(1, 5, n) * 4.0).astype(np.float32)
+    ps1, pe1, ps2, pe2 = p1.copy(), p1 + ln1, p2, p2 + ln2
+    if bent:
+        back = rng.random(n) < 0.3
+        pe1 = np.where(back, ps1 - rng.integers(1, 400, n), pe1)
+        pe2 = np.where(back, ps2 - rng.integers(1, 400, n), pe2)
+    init = w.copy()
+    init[rng.random(n) < 0.05] = np.finfo(np.float32).min
+    ps1[rng.random(n) < 0.05] = 0  # no query: starts at the chain's head
+    return (ps1.astype(np.int64), pe1.astype(np.int64), ps2.astype(np.int64),
+            pe2.astype(np.int64), w, init, (1.25, 50.0, 5000.0),
+            (2.5, 0.1, 0.0015), float(rng.uniform(0.05, 1.5)))
+
+
+def _levels(n):
+    """ceil(log2 n), at least 1."""
+    return max(1, (int(n) - 1).bit_length())
+
+
+def cdq_work(problems, prefix, work, design):
+    """Add one launch's work. `work`, for the bound, is what the function
+    needs, counted as the O(N log^2 N) CDQ engine of
+    native/chain_affine_cdq.cpp does it: over the ceil(log2 E) levels of
+    its divide and conquer each of the E events (N inserts and the
+    queries) takes part in one cross, whose two sweeps make one Fenwick
+    update or query each, ceil(log2 N) steps over 3 channels at 2
+    operations (compare, select); bytes = each input read once and each
+    output written once (126 per anchor: keys, step, weights, f64
+    constants; dp, bp, tie, struct, stored). `design` is this kernel's own
+    rescan (csrc/chain_cdq.cu): 10 operations per row a step scans (the
+    compares, the channel test and the maxima), as many rows as this data
+    needs (rows [0, t) with `prefix`, all N without), 60 per step for the
+    fold and the publication, and the same bytes."""
+    import numpy as np
+    for p, pre in zip(problems, prefix):
+        n = len(p[0])
+        order = np.lexsort((np.arange(n), p[0]))
+        asks = np.flatnonzero(np.asarray(p[0])[order] >= 1)
+        scanned = int(asks.sum()) if pre else len(asks) * n
+        events = n + len(asks)
+        work.add(events * _levels(events) * 2 * _levels(n) * 3 * 2, 126 * n)
+        design.add(10 * scanned + 60 * n, 126 * n)
+
+
+def scan_work(ev, n_slots, work, design):
+    """Add one launch's work. `work`, for the bound, is what the function
+    needs with a prefix-maximum tree over the slots: each event one update
+    or query of ceil(log2 n_slots) steps at 2 operations (compare,
+    select); bytes = events (16) read and winners (4) written per event,
+    dp0 read and dp written per slot (8). `design` is this kernel's own
+    rescan (csrc/chain_scan.cu): 2 operations per slot a query scans, 10
+    per event, and the same bytes."""
+    q = ev[:, 0] == 0
+    nbytes = 20 * len(ev) + 8 * n_slots
+    work.add(2 * len(ev) * _levels(n_slots), nbytes)
+    design.add(2 * int(ev[q, 2].astype("int64").sum()) + 10 * len(ev),
+               nbytes)
+
+
+def max_err(got, want):
+    """Max |difference| over matching outputs; raises unless they are equal
+    bit for bit."""
+    import torch
+    err = 0.0
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        if a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+        same = (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                if a.dtype == torch.float32 else torch.equal(a, b))
+        require(same, f"kernel disagrees with its plain version: {err}")
+    return err
+
+
+def compare_cdq(problems, device, reps, full=False):
+    """Pack `problems` into one launch and hold chain_cdq_scan against its
+    plain version (prefix mode as pack chose it, or every row with
+    `full`). Returns (err, kernel ms, plain ms, prefix flags)."""
+    import torch
+    from centrolign_tpu_torch.ops import chain_cdq as plain
+    from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
+
+    n_pad = max(len(p[0]) for p in problems)
+    _, arrays = plain.pack(problems, n_pad)
+    if full:
+        arrays[5][:] = 0
+    t = [torch.from_numpy(a).to(device) for a in arrays]
+    anchors = sum(len(p[0]) for p in problems)
+    got, ms = timed(lambda: cc.cdq_scan(*t, anchors=anchors), reps)
+    want, plain_ms = wall_ms(lambda: plain.cdq_scan_plain(*t))
+    return max_err(got, want), ms, plain_ms, [int(x) for x in arrays[5]]
+
+
+def scan_problem(rng, n, tie_dense=False):
+    """Inputs of sparse_chain_scan over n anchors on two chains, shaped like
+    tests/test_torch_chain_scan.py's: random, or on a grid with equal
+    weights."""
+    import numpy as np
+    grid = 24 if tie_dense else 1
+    s1 = rng.integers(1, 40 * max(n, 1) // grid + 2, n) * grid
+    s2 = np.maximum(s1 + (rng.choice([-4, 0, 4], n) if tie_dense
+                          else rng.integers(-40, 40, n)), 0)
+    ln = np.full(n, 16) if tie_dense else rng.integers(4, 40, n)
+    w = np.full(n, 16.0) if tie_dense else rng.integers(1, 5, n) * 4.0
+    return (s1, s1 + ln - 1, s2, s2 + ln - 1, w, rng.random(n) < 0.95,
+            rng.random(n) < 0.95)
+
+
+def compare_scan(args, device, reps):
+    """Hold chain_scan_event against its plain version on the events of
+    sparse_chain_scan inputs `args`. Returns (err, kernel ms, plain ms,
+    events (numpy), slots)."""
+    import torch
+    from centrolign_tpu_torch.ops import chain_scan as plain
+    from centrolign_tpu_torch.ops import chain_scan_cuda as sc
+
+    _, _, ev_np, dp0_np = plain.build_events(*args[:6])
+    ev = torch.from_numpy(ev_np).to(device)
+    dp0 = torch.from_numpy(dp0_np).to(device)
+    got, ms = timed(lambda: sc.event_scan(ev, dp0, anchors=len(args[4])),
+                    reps)
+    want, plain_ms = wall_ms(lambda: plain.event_scan_plain(ev, dp0))
+    return max_err(got, want), ms, plain_ms, ev_np, len(dp0_np)
+
+
+def chaining_bag(rng, device, card, errs):
+    """Phase 3d: both chaining kernels against their plain versions on a
+    bag. Returns {kernel: (kernel ms, plain ms, the function's Work, the
+    design's Work)} over the bag."""
+    import torch
+    from centrolign_tpu_torch.ops import chain_scan_cuda as sc
+
+    out = {"chain_cdq_scan": [0.0, 0.0, Work(), Work()],
+           "chain_scan_event": [0.0, 0.0, Work(), Work()]}
+    # L3: one launch of several problems (n = 0, 1 and 8, tie-dense ones,
+    # anchors that end before they start, more anchors than threads), one
+    # of n = 4,096, and that one again with every row scanned
+    batch = [cdq_problem(rng, 0), cdq_problem(rng, 1), cdq_problem(rng, 8),
+             cdq_problem(rng, 300, tie_dense=True),
+             cdq_problem(rng, 400, tie_dense=True),
+             cdq_problem(rng, 500, bent=True), cdq_problem(rng, 1100)]
+    big = [cdq_problem(rng, 4096)]
+    for what, probs, full in (("a batch of 7 (n 0-1100)", batch, False),
+                              ("n 4096", big, False),
+                              ("n 4096, every row scanned", big, True)):
+        err, ms, pms, prefix = compare_cdq(probs, device, 3, full)
+        errs["chain_cdq_scan"] = max(errs["chain_cdq_scan"], err)
+        k = out["chain_cdq_scan"]
+        k[0] += ms
+        k[1] += pms
+        cdq_work(probs, prefix, k[2], k[3])
+        print(f"chain_cdq_scan bag, {what} (prefix {prefix}): bit-equal, "
+              f"kernel {ms:.3f} ms, plain {pms:.1f} ms ({card})", flush=True)
+    # L4: one block a problem; the table in shared memory up to
+    # SHARED_SLOTS slots, in device memory above
+    empty = sc.event_scan(torch.zeros((0, 4), dtype=torch.int32,
+                                      device=device),
+                          torch.zeros(1, device=device), anchors=0)
+    require(empty[1].numel() == 0, "an empty event scan returned winners")
+    for what, args in (
+            ("n 1", scan_problem(rng, 1)),
+            ("n 8", scan_problem(rng, 8)),
+            ("n 300 tie-dense", scan_problem(rng, 300, True)),
+            ("n 1100", scan_problem(rng, 1100)),
+            ("n 4096", scan_problem(rng, 4096)),
+            ("n 40000, table in device memory", scan_problem(rng, 40000))):
+        err, ms, pms, ev, slots = compare_scan(args, device, 3)
+        errs["chain_scan_event"] = max(errs["chain_scan_event"], err)
+        k = out["chain_scan_event"]
+        k[0] += ms
+        k[1] += pms
+        scan_work(ev, slots, k[2], k[3])
+        print(f"chain_scan_event bag, {what} ({len(ev)} events, {slots} "
+              f"slots): bit-equal, kernel {ms:.3f} ms, plain {pms:.1f} ms "
+              f"({card})", flush=True)
+    return out
+
+
+def run_chaining_path(device, card, table, errs):
+    """Phase 8: pair.fasta through the CLI with both device-chaining
+    switches. Checks the CIGAR, the launches and anchors of both kernels,
+    the CDQ values against the native engine and the free-gap chains
+    against the native parity engine, then times each kernel at the path's
+    problems and holds it against its plain version there. Returns the
+    counts of the path's run."""
+    import copy
+    import numpy as np
+    import torch
+    from centrolign_tpu_torch import anchorer as anchorer_mod
+    from centrolign_tpu_torch.native import chain_affine_cdq
+    from centrolign_tpu_torch.ops import chain_cdq, chain_scan
+    from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
+    from centrolign_tpu_torch.ops import chain_scan_cuda as sc
+
+    cdq_calls, scan_calls, sparse_calls = [], [], []
+    cdq_entry, scan_entry = chain_cdq.chain_cdq_device, \
+        chain_scan.sparse_chain_scan
+    parity = anchorer_mod.Anchorer._chain_parity
+
+    def recording_cdq(*args):
+        out = cdq_entry(*args)
+        cdq_calls.append((args[:9], out))
+        return out
+
+    def recording_scan(*args):
+        scan_calls.append(args[:7])
+        return scan_entry(*args)
+
+    def recording_parity(self, matches, *args):
+        if args[8] != anchorer_mod.ChainAlgorithm.Sparse:
+            return parity(self, matches, *args)
+        kept = []
+        for m in matches:
+            c = copy.copy(m)
+            c.walks1, c.walks2 = m.walks1.copy(), m.walks2.copy()
+            kept.append(c)
+        t0 = time.perf_counter()
+        chain = parity(self, matches, *args)
+        sparse_calls.append((self, kept, args, chain,
+                             time.perf_counter() - t0))
+        return chain
+
+    chain_cdq.chain_cdq_device = recording_cdq
+    chain_scan.sparse_chain_scan = recording_scan
+    anchorer_mod.Anchorer._chain_parity = recording_parity
+    os.environ.update(CHAINING)
+    try:
+        reset_counts()
+        rc, out, wall = run_cli(["-v", "0", PAIR])
+        got = counts()
+    finally:
+        chain_cdq.chain_cdq_device = cdq_entry
+        chain_scan.sparse_chain_scan = scan_entry
+        anchorer_mod.Anchorer._chain_parity = parity
+        for k in CHAINING:
+            os.environ.pop(k)
+    require(rc == 0, f"cli.main returned {rc} on pair.fasta with device "
+            "chaining")
+    with open(REF_CIGAR) as f:
+        require(out == f.read(), "pair.fasta CIGAR with device chaining "
+                "differs from benchdata/ref_pair.cigar.txt")
+    cdq_sizes = tuple(len(a[0]) for a, _ in cdq_calls)
+    scan_sizes = tuple(len(a[4]) for a in scan_calls)
+    require(got["chain_cdq_scan"] == len(PAIR_CDQ_ANCHORS)
+            and cdq_sizes == PAIR_CDQ_ANCHORS
+            and got["cdq_anchors"] == sum(PAIR_CDQ_ANCHORS),
+            f"CDQ scan: {got['chain_cdq_scan']} launches over {cdq_sizes}, "
+            f"want {len(PAIR_CDQ_ANCHORS)} over {PAIR_CDQ_ANCHORS}")
+    require(got["chain_scan_event"] == len(PAIR_SCAN_ANCHORS)
+            and scan_sizes == PAIR_SCAN_ANCHORS
+            and got["scan_anchors"] == sum(PAIR_SCAN_ANCHORS),
+            f"event scan: {got['chain_scan_event']} launches over "
+            f"{scan_sizes}, want {len(PAIR_SCAN_ANCHORS)} over "
+            f"{PAIR_SCAN_ANCHORS}")
+    print(f"pair.fasta with device chaining: CIGAR byte-identical to the "
+          f"reference; wall {wall:.3f} s; chain_cdq_scan {got['chain_cdq_scan']}"
+          f" launch over {cdq_sizes} anchors, chain_scan_event "
+          f"{got['chain_scan_event']} launches over {scan_sizes} anchors; "
+          f"launches {json.dumps(got)} ({card})", flush=True)
+
+    # the CDQ values against the native engine, at full size
+    for args, dev_out in cdq_calls:
+        nat, nat_ms = wall_ms(lambda: chain_affine_cdq(*args))
+        dp, bp, tie, strct, stored, qs = dev_out
+        untied = nat[2] == 0
+        require(all(np.array_equal(a, b) for a, b in zip(
+            (nat[0], nat[2], nat[3], nat[4], nat[5]),
+            (dp, tie, strct, stored, qs)))
+            and np.array_equal(nat[1][untied], bp[untied]),
+            "the CDQ scan's values differ from the native engine's")
+        n = len(args[0])
+        _, arrays = chain_cdq.pack([args], n)
+        t = [torch.from_numpy(a).to(device) for a in arrays]
+        res, ms = timed(lambda: cc.cdq_scan(*t, anchors=n), 1)
+        want, pms = wall_ms(lambda: chain_cdq.cdq_scan_plain(*t))
+        errs["chain_cdq_scan"] = max(errs["chain_cdq_scan"],
+                                     max_err(res, want))
+        cdq_work([args], arrays[5], table["chain_cdq_scan"]["work"],
+                 table["chain_cdq_scan"]["design"])
+        table["chain_cdq_scan"]["ms"] += ms
+        table["chain_cdq_scan"]["plain_ms"] += pms
+        print(f"chain_cdq_scan on pair.fasta's {n} anchors (prefix "
+              f"{int(arrays[5][0])}): dp, tie, struct, stored bit-equal to "
+              f"native, bp equal on the {int(untied.sum())} untied; kernel "
+              f"{ms:.3f} ms ({ms / n * 1e3:.3f} us a step), native engine "
+              f"{nat_ms:.3f} ms, plain {pms:.1f} ms (bit-equal) ({card})",
+              flush=True)
+
+    # the free-gap chains against the native parity engine, and the
+    # event scan alone on each problem
+    for self_, kept, args, chain, dev_s in sparse_calls:
+        t0 = time.perf_counter()
+        native = parity(self_, kept, *args)
+        nat_s = time.perf_counter() - t0
+        require(len(native) == len(chain) and all(
+            np.array_equal(a.walk1, b.walk1)
+            and np.array_equal(a.walk2, b.walk2)
+            and (a.count1, a.count2) == (b.count1, b.count2)
+            for a, b in zip(native, chain)),
+            "a free-gap chain differs from the native parity engine's")
+        print(f"free-gap chain of {len(chain)} anchors: identical to the "
+              f"native parity engine's; device chaining {dev_s * 1e3:.3f} "
+              f"ms, native {nat_s * 1e3:.3f} ms (host wall) ({card})",
+              flush=True)
+    for args in scan_calls:
+        n = len(args[4])
+        _, _, ev_np, dp0_np = chain_scan.build_events(*args[:6])
+        ev = torch.from_numpy(ev_np).to(device)
+        dp0 = torch.from_numpy(dp0_np).to(device)
+        res, ms = timed(lambda: sc.event_scan(ev, dp0, anchors=n), 3)
+        want, pms = wall_ms(lambda: chain_scan.event_scan_plain(ev, dp0))
+        errs["chain_scan_event"] = max(errs["chain_scan_event"],
+                                       max_err(res, want))
+        scan_work(ev_np, len(dp0_np), table["chain_scan_event"]["work"],
+                  table["chain_scan_event"]["design"])
+        table["chain_scan_event"]["ms"] += ms
+        table["chain_scan_event"]["plain_ms"] += pms
+        print(f"chain_scan_event on {n} anchors ({len(ev_np)} events, "
+              f"{len(dp0_np)} slots, table in "
+              f"{'shared' if len(dp0_np) <= sc.SHARED_SLOTS else 'device'} "
+              f"memory): kernel {ms:.3f} ms, plain {pms:.1f} ms (bit-equal) "
+              f"({card})", flush=True)
+    return got
+
+
+# ---------------------------------------------------------------------------
 # paths
 
 
@@ -505,22 +878,30 @@ def run_cli(argv):
 
 def reset_counts():
     from centrolign_tpu_torch import metrics
+    from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
+    from centrolign_tpu_torch.ops import chain_scan_cuda as sc
     from centrolign_tpu_torch.ops import gotoh_cuda as gc
     from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
     metrics.reset()
-    gc.reset_counters()
-    pdc.reset_counters()
+    for mod in (gc, pdc, cc, sc):
+        mod.reset_counters()
 
 
 def counts():
+    from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
+    from centrolign_tpu_torch.ops import chain_scan_cuda as sc
     from centrolign_tpu_torch.ops import gotoh_cuda as gc
     from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
     return {"gotoh_fill": gc.FILL_LAUNCHES,
             "gotoh_traceback": gc.TRACEBACK_LAUNCHES,
             "popoa_dag_fill": pdc.FILL_LAUNCHES,
             "popoa_dag_traceback": pdc.TRACEBACK_LAUNCHES,
+            "chain_cdq_scan": cc.LAUNCHES,
+            "chain_scan_event": sc.LAUNCHES,
             "chain_jobs": gc.DISPATCHED_JOBS,
-            "dag_jobs": pdc.DISPATCHED_JOBS}
+            "dag_jobs": pdc.DISPATCHED_JOBS,
+            "cdq_anchors": cc.ANCHORS,
+            "scan_anchors": sc.ANCHORS}
 
 
 def main() -> int:
@@ -551,14 +932,16 @@ def main() -> int:
     from centrolign_tpu_torch.ops.align_params import AlignmentParams
 
     # 2. build
+    from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
+    from centrolign_tpu_torch.ops import chain_scan_cuda as sc
     t0 = time.perf_counter()
-    _build.build_libraries(["gotoh", "popoa_dag"])
-    gc._lib()
-    pdc._lib()
-    print(f"build: {GOTOH_SRC}, {DAG_SRC} with nvcc "
-          f"{' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.3f} s",
-          flush=True)
-    for name in ("gotoh", "popoa_dag"):
+    _build.build_libraries(SOURCES)
+    for mod in (gc, pdc, cc, sc):
+        mod._lib()
+    print(f"build: {', '.join(sorted({src for src, _ in KERNELS.values()}))} "
+          f"with nvcc {' '.join(_build.NVCC_FLAGS)} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for name in SOURCES:
         for line in _build.build_info.get(name, (0.0, ""))[1].splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -606,6 +989,14 @@ def main() -> int:
         print(f"gotoh_align_device {L1} x {L2}: bit-equal, kernel {ms:.3f} "
               f"ms, plain {pms:.1f} ms ({card})", flush=True)
 
+    # 3d. the device-chaining kernels on their bag
+    chain_bag = chaining_bag(rng, device, card, errs)
+    for name, (ms, pms, w, design) in chain_bag.items():
+        print(f"chaining bag, {name}: bit-equal, kernel {ms:.3f} ms, plain "
+              f"{pms:.1f} ms, bound {w.bound()[0]:.6f} ms (the function's "
+              f"work), {design.bound()[0]:.6f} ms (this design's rescan) "
+              f"({card})", flush=True)
+
     # 4. the pairwise path
     dispatched, dag_dispatched = [], []
     dispatch, dag_batch = stitcher_mod.gotoh_dispatch, \
@@ -646,7 +1037,8 @@ def main() -> int:
     print("pair.fasta aligner counters: " + json.dumps(metrics.summary()),
           flush=True)
 
-    table = {name: {"ms": 0.0, "plain_ms": 0.0, "work": Work()}
+    table = {name: {"ms": 0.0, "plain_ms": 0.0, "work": Work(),
+                    "design": Work()}
              for name in KERNELS}
     here = compare_path_gotoh(dispatched, pair_counts["gotoh_fill"], device,
                               table, errs)
@@ -692,7 +1084,9 @@ def main() -> int:
     print("five.fasta aligner counters: " + json.dumps(five_summary),
           flush=True)
     longest = (None, -1)  # five.fasta's longest walk: (job, steps)
-    for part in dag_dispatched:
+    dag_launches = [g for flush in dag_dispatched
+                    for g in pdc.launch_groups(flush)]
+    for part in dag_launches:
         res, rows = compare_dag(part, device, reps=5)
         k = int(rows[:, 0, 0].argmax())
         if rows[k, 0, 0] > longest[1]:
@@ -717,7 +1111,7 @@ def main() -> int:
         k = table[name]
         print(f"five.fasta DAG jobs, {name}: bit-equal, kernel "
               f"{k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms, bound "
-              f"{k['work'].bound()[0]:.6f} ms over {len(dag_dispatched)} "
+              f"{k['work'].bound()[0]:.6f} ms over {len(dag_launches)} "
               f"launches ({card})", flush=True)
     here = compare_path_gotoh(dispatched, five_counts["gotoh_fill"], device,
                               table, errs)
@@ -895,6 +1289,17 @@ def main() -> int:
               f"({host_s * 1e3 / len(part):.3f} ms a gap); one device "
               f"dispatch + fetch {dev_ms:.3f} ms ({card})", flush=True)
 
+    # 8. the pairwise path with device chaining
+    chain_counts = run_chaining_path(device, card, table, errs)
+    for name in ("chain_cdq_scan", "chain_scan_event"):
+        k = table[name]
+        print(f"pair.fasta chaining problems, {name}: kernel {k['ms']:.3f} "
+              f"ms over {chain_counts[name]} launches, plain "
+              f"{k['plain_ms']:.1f} ms, bound {k['work'].bound()[0]:.6f} ms "
+              f"({k['work'].bound()[1]}; the function's work), "
+              f"{k['design'].bound()[0]:.6f} ms ({k['design'].bound()[1]}; "
+              f"this design's rescan), library none ({card})", flush=True)
+
     # the end: no jax, nothing of the JAX package
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
@@ -906,7 +1311,9 @@ def main() -> int:
                    for k in ("gotoh_fill", "gotoh_traceback")},
                 "popoa_dag_fill": five_counts["popoa_dag_fill"],
                 "popoa_dag_traceback": five_counts["popoa_dag_traceback"],
-                "gotoh_align_single": single_counts["gotoh_fill"]}
+                "gotoh_align_single": single_counts["gotoh_fill"],
+                "chain_cdq_scan": chain_counts["chain_cdq_scan"],
+                "chain_scan_event": chain_counts["chain_scan_event"]}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         k = table[name]

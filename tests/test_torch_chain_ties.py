@@ -54,9 +54,10 @@ def test_resolver_matches_on_tie_cases(monkeypatch, trial):
         assert port.resolve(anchor, struct, stored) == want
 
 
-def _port_chain(monkeypatch, matches, rng_seed):
+def _port_chain(monkeypatch, matches, rng_seed, device=None):
     """The port's anchorer (CDQ engine, ties through the port's
-    chain_ties) on the graphs of _setup_graphs(seed)."""
+    chain_ties) on the graphs of _setup_graphs(seed), its device chaining
+    on `device`."""
     from centrolign_tpu_torch import anchorer, match_finder, modify_graph
     from centrolign_tpu_torch.path_merge import PathMerge
     from centrolign_tpu_torch.score_function import ScoreFunction
@@ -76,7 +77,8 @@ def _port_chain(monkeypatch, matches, rng_seed):
         score_function=ScoreFunction(),
         chaining_algorithm=anchorer.ChainAlgorithm.SparseAffine,
         autocalibrate_gap_penalties=False,
-        split_matches_at_branchpoints=False, do_fill_in_anchoring=False)
+        split_matches_at_branchpoints=False, do_fill_in_anchoring=False,
+        device=device)
     chain = anc.anchor_chain(ms, g1, g2, t1, t2, PathMerge(g1, t1),
                              PathMerge(g2, t2))
     return [(tuple(a.walk1.tolist()), tuple(a.walk2.tolist()),

@@ -33,7 +33,8 @@ _PORT = r"""
 import contextlib, io, json, sys
 sys.path.insert(0, {repo!r})
 from centrolign_tpu_torch import cli, metrics
-from centrolign_tpu_torch.ops import gotoh_cuda, popoa_dag_cuda
+from centrolign_tpu_torch.ops import (chain_cdq_cuda, chain_scan_cuda,
+                                     gotoh_cuda, popoa_dag_cuda)
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
     rc = cli.main({argv!r})
@@ -46,6 +47,12 @@ print(json.dumps({{"rc": rc, "jobs": gotoh_cuda.DISPATCHED_JOBS,
                   "dag_fills": popoa_dag_cuda.FILL_LAUNCHES,
                   "pod": metrics.counters["pod"][1] if "pod" in metrics.counters else 0,
                   "podag": metrics.counters["podag"][1] if "podag" in metrics.counters else 0,
+                  "cdq": [chain_cdq_cuda.PLAIN_PROBLEMS,
+                          chain_cdq_cuda.PLAIN_ANCHORS,
+                          chain_cdq_cuda.LAUNCHES],
+                  "scan": [chain_scan_cuda.PLAIN_PROBLEMS,
+                           chain_scan_cuda.PLAIN_ANCHORS,
+                           chain_scan_cuda.LAUNCHES],
                   "foreign": mods}}), file=sys.stderr)
 sys.exit(rc)
 """
@@ -67,11 +74,11 @@ def _run_port(argv, **env):
     return r, stats
 
 
-def _run_jax_cli(argv):
+def _run_jax_cli(argv, **env):
     return subprocess.run(
         [sys.executable, "-m", "centrolign_tpu.cli", *argv],
         capture_output=True, text=True, timeout=600, cwd=REPO,
-        env=_env(JAX_PLATFORMS="cpu", CENTROLIGN_TPU_USE_DEVICE="0"))
+        env=_env(JAX_PLATFORMS="cpu", CENTROLIGN_TPU_USE_DEVICE="0", **env))
 
 
 def _write_pair(path, seed):
@@ -112,6 +119,27 @@ def test_cigar_matches_jax_cli_with_device_tier_on_cpu(pairs, seed):
     assert stats["foreign"] == []
 
 
+def test_cigar_matches_jax_cli_with_device_chaining_on_cpu(pairs):
+    """Both device-chaining switches: the CDQ value pass and the three
+    free-gap calibration chains go through the plain scans on the CPU
+    (anchor budget cut to 3,000 pairs so that the JAX scans finish on the
+    CPU in seconds) and give the JAX CLI's CIGAR with the same switches."""
+    argv = ["-v", "0", "-u", "-a", "3000", pairs[1]]
+    chaining = {"CENTROLIGN_TPU_DEVICE_CDQ": "1",
+                "CENTROLIGN_TPU_DEVICE_CHAIN": "1"}
+    ref = _run_jax_cli(argv, **chaining)
+    assert ref.returncode == 0, ref.stderr
+    r, stats = _run_port(argv, CENTROLIGN_TORCH_DEVICE="cpu", **chaining)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout == ref.stdout
+    cdq_problems, cdq_anchors, cdq_launches = stats["cdq"]
+    scan_problems, scan_anchors, scan_launches = stats["scan"]
+    assert (cdq_problems, scan_problems) == (1, 3)
+    assert cdq_anchors > 1000 and scan_anchors > 3000
+    assert cdq_launches == scan_launches == 0
+    assert stats["foreign"] == []
+
+
 def test_cigar_matches_without_device_tier(pairs):
     argv = ["-v", "0", "-u", pairs[1]]
     ref = _run_jax_cli(argv)
@@ -149,6 +177,19 @@ def test_multi_host_is_not_ported(pairs):
                          CENTROLIGN_TORCH_DEVICE="cpu")
     assert r.returncode != 0
     assert "not yet ported" in r.stderr
+
+
+def test_jaxdist_with_one_host_runs_serially(tmp_path):
+    """CENTROLIGN_TPU_EXECUTOR=jaxdist with one host runs serially, as in
+    the JAX package (centrolign_tpu/cli.py:143-174)."""
+    fasta = tmp_path / "tiny.fasta"
+    fasta.write_text(">a\nACGTACGTTGCA\n>b\nACGAACGTTGCA\n")
+    r, stats = _run_port(["-v", "0", str(fasta)],
+                         CENTROLIGN_TORCH_DEVICE="cpu",
+                         CENTROLIGN_TPU_EXECUTOR="jaxdist")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout == "3=1X8=\n"
+    assert stats["foreign"] == []
 
 
 def test_generate_config_matches_jax_cli():

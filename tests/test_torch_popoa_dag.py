@@ -360,3 +360,74 @@ def test_gap_penalty_guard():
     jobs[0].params = params_from_arrays(1, 1, [1 << 28], [1])
     with pytest.raises(ValueError):
         pdc.dag_job_table(jobs)
+
+
+def _chain_graph(rng, V):
+    g = BaseGraph()
+    ids = g.add_nodes(rng.integers(0, 4, V))
+    g.add_edges(ids[:-1], ids[1:])
+    return g
+
+
+def test_eligible_only_what_a_launch_accepts():
+    """A job is eligible only if fill_lanes and dag_job_table take it
+    alone: a short side of MAX_LANES is, one lane more is not (a 67 M-cell
+    gap, never filled here), nor gap penalties of 2^28, nor sink pairs
+    past 2^31 entries; the stitcher then aligns it on host `po`."""
+    from centrolign_tpu_torch.ops.align_params import AlignmentParams as P
+    rng = np.random.default_rng(2028)
+    params = _port_params(PARAMS[0])
+    wide = pdc.MAX_LANES
+
+    def job(V1, V2, p=params, sinks1=None, sinks2=None):
+        g1, g2 = _chain_graph(rng, V1), _chain_graph(rng, V2)
+        return torch_dag._DagJob(g1, g2, [0], [0], sinks1 or [V1 - 1],
+                                 sinks2 or [V2 - 1], p)
+
+    fits = job(wide + 7, wide)
+    assert wide == 8192 and fits.eligible
+    assert pdc.fill_lanes([fits]) == (8, 1024)
+    too_wide = job(wide + 1, wide + 3)
+    assert not too_wide.eligible
+    with pytest.raises(ValueError, match="at most 8192 lanes"):
+        pdc.fill_lanes([too_wide])
+
+    steep = job(40, 50, P(2, 3, (1 << 28, 5), (1, 1)))
+    assert steep.t1.eligible and steep.t2.eligible and not steep.eligible
+    steep.prepare()
+    with pytest.raises(ValueError, match="2\\^28"):
+        pdc.dag_job_table([steep])
+    assert job(40, 50, P(2, 3, ((1 << 28) - 2, 5), (1, 1))).eligible
+
+    # 262,145 x 8,192 sink pairs: more sink-M entries than 2^31
+    V1 = (1 << 31) // wide + 1
+    many = job(V1, wide, sinks1=list(range(V1)), sinks2=list(range(wide)))
+    assert many.t1.eligible and many.t2.eligible and not many.eligible
+    assert pdc.launchable(job(V1 - 2, wide, sinks1=list(range(V1 - 2)),
+                              sinks2=list(range(wide))))
+
+
+def test_launch_groups_stay_under_a_launchs_entries():
+    """A flush of jobs that each fit a launch is cut, in order, into
+    launches that each stay below dag_job_table's 2^31 data and sink-M
+    entries: four jobs of 30,000 x 30,000 sink pairs take two launches,
+    small jobs one (no fill: launch_groups reads only the sizes)."""
+    from types import SimpleNamespace as NS
+
+    def sized(V, n1, n2):
+        t = NS(V=V, delta=np.zeros((2, V), np.int32))
+        return NS(t1=t, t2=t, sink_pos1=np.arange(n1),
+                  sink_pos2=np.arange(n2))
+
+    big = [sized(40_000, 30_000, 30_000) for _ in range(4)]
+    groups = pdc.launch_groups(big)
+    assert [len(g) for g in groups] == [2, 2]
+    assert [j for g in groups for j in g] == big
+    for g in groups:
+        entries = [pdc._launch_entries(j, len(j.sink_pos1),
+                                       len(j.sink_pos2)) for j in g]
+        assert all(sum(col) < 1 << 31 for col in zip(*entries))
+    small = [sized(100, 3, 3) for _ in range(5)]
+    assert pdc.launch_groups(small) == [small]
+    assert pdc.launch_groups([]) == []
+    assert pdc.popoa_dag_align_jobs([], CPU) == []
