@@ -23,7 +23,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
-_SOURCES = ["chain.cpp", "chain_general.cpp", "chain_affine_cdq.cpp", "esa.cpp", "popoa.cpp", "extract.cpp", "wfa.cpp", "chain_parity.cpp", "superbubbles.cpp", "three_ecc.cpp", "cactus_snarls.cpp", "fill_in.cpp"]
+_SOURCES = ["chain.cpp", "chain_general.cpp", "chain_affine_cdq.cpp", "esa.cpp", "popoa.cpp", "extract.cpp", "wfa.cpp", "chain_parity.cpp", "superbubbles.cpp", "three_ecc.cpp", "cactus_snarls.cpp", "fill_in.cpp", "chain_levels.cpp"]
 _FLAGS = ["-O3", "-std=c++17", "-fPIC"]
 
 _lib = None
@@ -269,6 +269,11 @@ def get_lib() -> ctypes.CDLL:
         [ctypes.c_int64, I64P, I64P, ctypes.c_int64] + [I64P] * 3 +
         [ctypes.c_int64, I64P, I64P, ctypes.c_int64] + [I64P] * 3 +
         [ctypes.c_int, ctypes.c_int64, I64P])
+    lib.cdq_row_levels.restype = None
+    lib.cdq_row_levels.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 3
+    lib.chain_event_levels.restype = ctypes.c_int64
+    lib.chain_event_levels.argtypes = [ctypes.c_int64, ctypes.c_void_p,
+                                       ctypes.c_int64, ctypes.c_void_p]
     _lib = lib
     return lib
 
@@ -777,6 +782,36 @@ def chain_affine_cdq(s1, e1, s2, e2, w32, init32, gap_open, gap_extend,
         _ptr_i64(out_qs))
     assert rc == 0
     return out_dp, out_bp, out_tie, out_struct, out_stored, out_qs
+
+
+def cdq_row_levels(ps1, pe1):
+    """The dependency level of each row of a CDQ scan problem in sorted
+    order (ps1 non-decreasing): 1 + the level of the latest earlier row
+    with pe1 < its ps1, 1 when there is none (native/chain_levels.cpp)."""
+    ps1 = np.ascontiguousarray(ps1, dtype=np.int64)
+    pe1 = np.ascontiguousarray(pe1, dtype=np.int64)
+    level = np.empty(len(ps1), dtype=np.int64)
+    get_lib().cdq_row_levels(len(ps1), _ptr_i64(ps1), _ptr_i64(pe1),
+                             _ptr_i64(level))
+    return level
+
+
+def chain_event_levels(ev, n):
+    """The level of each event (E,) int32 of an event scan's stream `ev`
+    (E, 4) int32 over n slots: a query with qhi > 0 is one level above
+    every insert before it, every other event has level 0
+    (native/chain_levels.cpp). Raises ValueError on a stream the
+    level-synchronous kernel does not take (a slot inserted or queried
+    twice, a slot out of range, another kind)."""
+    ev = np.ascontiguousarray(ev, dtype=np.int32)
+    level = np.empty(len(ev), dtype=np.int32)
+    depth = get_lib().chain_event_levels(
+        len(ev), ev.ctypes.data_as(ctypes.c_void_p), int(n),
+        level.ctypes.data_as(ctypes.c_void_p))
+    if depth < 0:
+        raise ValueError("the event stream inserts or queries a slot twice, "
+                         "or holds a slot or kind out of range")
+    return level
 
 
 def _paths_args(graph):

@@ -29,8 +29,18 @@ csrc/chain_cdq.cu), per problem b of a batch of B, N rows in sorted order:
  - wi float32 (B, N, 2): (w, init);
  - fc float64 (B, N, 6), cs float64 (B, N, 3): the f64 constants;
  - prefix int32 (B,): 1 when every anchor has pe1 >= ps1, so that no row
-   at or after row t can pass pe1 < ps1_t and the kernel scans rows
-   [0, t) only; 0 makes it scan all N rows.
+   at or after row t can pass pe1 < ps1_t and a step scans only earlier
+   rows; 0 makes it scan all N rows;
+ - levels int32 (S, 4): the kernel's schedule, one row per dependency
+   level of each problem, problem after problem: (b, q0, q1, index of the
+   level in its problem). The level of row j is 1 + the largest level of a
+   row i < j with pe1_i < ps1_j (1 when there is none): a row reads only
+   rows of lower levels, and since ps1 is sorted the levels never fall, so
+   level L is the run of rows [q0, q1) and the rows of lower levels are
+   [0, q0). A row of the same level never passes a query's mask (it would
+   sit a level higher), and the rows after a query hold -FLT_MAX until
+   their level is published in both schedules, so the level-synchronous
+   kernel gives the sequential scan's outputs bit for bit.
 Outputs per row: dp float32, bp int32 (sorted index or -1), tie uint8,
 struct uint8 (the winning channel, 255 for none), stored float32.
 
@@ -43,6 +53,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..native import cdq_row_levels
 
 _NEGF = np.float32(np.finfo(np.float32).min)
 _NPW = 3
@@ -126,9 +138,27 @@ def _unsort(order, n, dp, bp, tie, strct, stored):
     return out_dp, out_bp, out_tie, out_struct, out_stored
 
 
+def runs(level):
+    """(starts, ends) of the runs of equal values of a non-decreasing
+    array."""
+    level = np.asarray(level, np.int64)
+    if not len(level):
+        return level, level
+    starts = np.flatnonzero(np.diff(level, prepend=level[0] - 1))
+    return starts, np.append(starts[1:], len(level))
+
+
+def level_steps(b, ps1, pe1):
+    """The schedule rows (b, q0, q1, index of the level) of problem b, its
+    rows in sorted order (module docstring)."""
+    starts, ends = runs(cdq_row_levels(ps1, pe1))
+    return np.stack([np.full(len(starts), b), starts, ends,
+                     np.arange(len(starts))], axis=1).astype(np.int32)
+
+
 def pack(problems, n_pad):
-    """(orders, (key, step, wi, fc, cs, prefix) as numpy arrays) of a
-    batch of problems, each (ps1, pe1, ps2, pe2, w, init, go, ge, scale)
+    """(orders, (key, step, wi, fc, cs, prefix, levels) as numpy arrays) of
+    a batch of problems, each (ps1, pe1, ps2, pe2, w, init, go, ge, scale)
     with at most n_pad anchors (layout in the module docstring)."""
     B = len(problems)
     key = np.zeros((B, n_pad, 4), np.int32)
@@ -137,6 +167,7 @@ def pack(problems, n_pad):
     fc = np.zeros((B, n_pad, 2 * _NPW), np.float64)
     cs = np.zeros((B, n_pad, _NPW), np.float64)
     prefix = np.zeros(B, np.int32)
+    levels = [np.zeros((0, 4), np.int32)]
     orders = []
     for b, (ps1, pe1, ps2, pe2, w, init, go, ge, scale) in enumerate(
             problems):
@@ -151,12 +182,15 @@ def pack(problems, n_pad):
         fc[b] = xs[7]
         cs[b] = xs[8]
         prefix[b] = bool((pe1 >= ps1).all())
-    return orders, (key, step, wi, fc, cs, prefix)
+        n = len(ps1)
+        levels.append(level_steps(b, xs[1][:n], pe1_s[:n]))
+    return orders, (key, step, wi, fc, cs, prefix, np.concatenate(levels))
 
 
-def cdq_scan_plain(key, step, wi, fc, cs, prefix):
+def cdq_scan_plain(key, step, wi, fc, cs, prefix, levels=None):
     """Plain PyTorch version of the scan (the JAX package's _cdq_scan, one
-    problem of the batch after the other): a loop over the N steps, each
+    problem of the batch after the other; it takes the kernel's arguments
+    and needs no schedule, `levels`): a loop over the N steps, each
     taking the 7 masked channel maxima over the table on the inputs'
     device with torch.argmax's first-index rule (over rows [0, t) only
     where `prefix` says so, as the kernel does), then folding them and
@@ -239,9 +273,9 @@ def _empty(qshift):
 
 def chain_cdq_device_batch(problems, device: torch.device):
     """Several chain problems in ONE scan on `device`: the kernel of
-    csrc/chain_cdq.cu (one block per problem) on a card, the plain version
-    on the CPU. problems: list of (ps1, pe1, ps2, pe2, w, init, go, ge,
-    scale) tuples. Returns a list of (dp, bp, tie, struct, stored, qshift)
+    csrc/chain_cdq.cu (one launch, level after level) on a card, the plain
+    version on the CPU. problems: list of (ps1, pe1, ps2, pe2, w, init, go,
+    ge, scale) tuples. Returns a list of (dp, bp, tie, struct, stored, qshift)
     per problem in anchor-id order, as native.chain_affine_cdq does."""
     from .chain_cdq_cuda import cdq_scan
     if not problems:

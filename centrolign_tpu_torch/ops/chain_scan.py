@@ -31,6 +31,19 @@ anchor's value-table slot, qhi: a query's exclusive slot bound, the bit
 pattern of the f32 weight). The table has one slot per anchor, and there
 is one event per insert and per query: no padding.
 
+The kernel runs one step per dependency level, not per event (`levels`,
+from `event_steps`): a query with qhi > 0 sits one level above every
+insert before it, and an insert has the level of its slot's query when
+that query came first, else 0 (native/chain_levels.cpp). Levels never fall
+along the stream, so a level is a run of consecutive queries. A level-L
+query takes the leftmost maximum over the slots below its bound whose
+insert event precedes its own: each such slot was written in a lower
+level, so it holds the value the sequential scan reads, and a slot
+inserted later holds -FLT_MAX there, which never wins. The schedule is
+(steps (S, 4) int32: (q0, q1, hi, level) over `queries`, hi the largest
+bound of the level's queries; queries (Q,) int32: the event index of each
+query with qhi > 0, in stream order).
+
 Used by Anchorer._chain_parity when CENTROLIGN_TPU_DEVICE_CHAIN=1, both
 graphs are single chains and the anchorer has a device.
 """
@@ -41,6 +54,8 @@ import numpy as np
 import torch
 
 from ..chain_ties import _heap_rank, _subtree_interval
+from ..native import chain_event_levels
+from .chain_cdq import runs
 
 _NEGF = np.float32(np.finfo(np.float32).min)
 
@@ -141,11 +156,24 @@ def _tree_tie_winner(n, qhi, tied_slots, insert_rank):
     return None
 
 
+def event_steps(ev, n):
+    """The kernel's schedule (steps, queries) of the event stream `ev` over
+    n slots (module docstring)."""
+    level = chain_event_levels(ev, n)
+    queries = np.flatnonzero(level > 0).astype(np.int32)
+    starts, ends = runs(level[queries])
+    hi = (np.minimum(np.maximum.reduceat(ev[queries, 2], starts), n)
+          if len(starts) else np.empty(0, np.int32))
+    steps = np.stack([starts, ends, hi, np.arange(len(starts))], axis=1)
+    return steps.astype(np.int32), queries
+
+
 def build_events(starts1_pos, ends1_pos, idx2_start, idx2_end, weights,
                  reach_src):
     """The scan's inputs for n >= 1 anchors (arguments as for
     sparse_chain_scan): (order: slot -> anchor, qhi per slot, ev (E, 4)
-    int32 in the event layout, dp0 (n,) f32)."""
+    int32 in the event layout, dp0 (n,) f32, levels: the kernel's schedule
+    (steps, queries))."""
     n = len(weights)
     w32 = np.asarray(weights, dtype=np.float32)
 
@@ -182,7 +210,7 @@ def build_events(starts1_pos, ends1_pos, idx2_start, idx2_end, weights,
     ev_w = ev_w[ev_order]
 
     ev = np.stack([ev_kind, ev_slot, ev_qhi, ev_w.view(np.int32)], axis=1)
-    return order, qhi, ev, dp0
+    return order, qhi, ev, dp0, event_steps(ev, n)
 
 
 def sparse_chain_scan(starts1_pos, ends1_pos, idx2_start, idx2_end,
@@ -202,10 +230,11 @@ def sparse_chain_scan(starts1_pos, ends1_pos, idx2_start, idx2_end,
     n = len(weights)
     if n == 0:
         return [], 0.0
-    order, qhi, ev, dp0 = build_events(starts1_pos, ends1_pos, idx2_start,
-                                       idx2_end, weights, reach_src)
-    dp, winners = event_scan(torch.from_numpy(ev).to(device),
-                             torch.from_numpy(dp0).to(device), anchors=n)
+    order, qhi, ev, dp0, levels = build_events(
+        starts1_pos, ends1_pos, idx2_start, idx2_end, weights, reach_src)
+    dp, winners = event_scan(
+        torch.from_numpy(ev).to(device), torch.from_numpy(dp0).to(device),
+        tuple(torch.from_numpy(a).to(device) for a in levels), anchors=n)
     dp = dp.cpu().numpy()
     winners = winners.cpu().numpy()
     ev_kind, ev_slot = ev[:, 0], ev[:, 1]

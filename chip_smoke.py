@@ -28,10 +28,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3d. the device-chaining kernels against their plain versions on a bag
    (exact: dp, bp, tie, struct, stored and dp, winners bit-equal): the CDQ
    scan on one launch of 7 problems (n 0, 1, 8, two tie-dense, anchors
-   that end before they start, n 1,100 > the block's 1,024 threads) and
-   on n 4,096 scanning the prefix and every row; the event scan on n 1,
-   8, 300 tie-dense, 1,100 and 4,096 with its table in shared memory and
-   on n 40,000 with it in device memory;
+   that end before they start, n 1,100 > the block's 1,024 threads), on a
+   chain of 2,000 levels, on a batch of unequal depths (300 levels, a
+   random 2,000, 600 anchors ending before they start, 5,000 in two levels
+   of 2,500 queries: more than a block's threads and a chunk of
+   partials), and on n 4,096 scanning the prefix, every row, and staged 8
+   rows at a time; the event scan on n 1, 8, 300 tie-dense, 1,100, 4,096,
+   a chain of 2,000 anchors, n 12,000 staged 16 slots at a time and n
+   40,000; each with its levels, queries a level and grid barriers;
 4. the pairwise path: the port's CLI on benchdata/pair.fasta; the CIGAR
    must equal benchdata/ref_pair.cigar.txt byte for byte, both Gotoh
    kernels must have launched, and the device tier must have taken 28 gaps
@@ -68,10 +72,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    145,331; the CDQ values must be bit-equal to the native engine's (bp
    where untied) and the free-gap chains identical to the native parity
    engine's; each kernel is timed at the path's problems and held against
-   its plain version there (bit-equal), beside the native engines' time,
-   its bound (the work the function needs: the native CDQ engine's
-   O(N log^2 N) steps, a prefix-maximum tree's O(E log n)) and the bound
-   of this design's own rescan;
+   its plain version there (bit-equal), with its levels, mean and max
+   queries a level, grid barriers, the host schedule's ms and the time a
+   level, beside the native engines' time, its bound (the work the
+   function needs: the native CDQ engine's O(N log^2 N) steps, a
+   prefix-maximum tree's O(E log n)) and the bound of this design's own
+   work (rows staged per level, query x row tests, partials);
 and at the end neither jax nor any module of the JAX package may be in the
 process. Each path runs with the launch counters set to 0 just before it
 and read just after. The last three lines of standard output are the
@@ -547,49 +553,116 @@ def cdq_problem(rng, n, tie_dense=False, bent=False):
             (2.5, 0.1, 0.0015), float(rng.uniform(0.05, 1.5)))
 
 
+def chain_problem(n):
+    """A SparseAffine chain problem of n anchors, each ending before the
+    next starts: n dependency levels of one query each."""
+    import numpy as np
+    p = np.arange(n, dtype=np.int64) * 10 + 1
+    w = np.full(n, 8.0, np.float32)
+    return (p, p + 4, p, p + 4, w, w.copy(), (1.25, 50.0, 5000.0),
+            (2.5, 0.1, 0.0015), 0.5)
+
+
+def two_level_problem(rng, n):
+    """A SparseAffine chain problem of n anchors in two dependency levels of
+    n / 2 queries each: the first half ends before the second starts, and
+    neither half reaches into itself."""
+    import numpy as np
+    h = n // 2
+    ps1 = np.concatenate([rng.integers(1, 50, h), rng.integers(100, 150, h)])
+    pe1 = np.concatenate([rng.integers(51, 60, h), rng.integers(201, 260, h)])
+    ps2 = ps1 + rng.integers(-3, 4, 2 * h)
+    pe2 = pe1 + rng.integers(-3, 4, 2 * h)
+    w = (rng.integers(1, 3, 2 * h) * 4.0).astype(np.float32)
+    return (ps1.astype(np.int64), pe1.astype(np.int64), ps2.astype(np.int64),
+            pe2.astype(np.int64), w, w.copy(), (1.25, 50.0, 5000.0),
+            (2.5, 0.1, 0.0015), 0.75)
+
+
 def _levels(n):
     """ceil(log2 n), at least 1."""
     return max(1, (int(n) - 1).bit_length())
 
 
-def cdq_work(problems, prefix, work, design):
-    """Add one launch's work. `work`, for the bound, is what the function
-    needs, counted as the O(N log^2 N) CDQ engine of
-    native/chain_affine_cdq.cpp does it: over the ceil(log2 E) levels of
-    its divide and conquer each of the E events (N inserts and the
-    queries) takes part in one cross, whose two sweeps make one Fenwick
+def _barriers(queries, part_queries, active):
+    """Grid barriers of a level of `queries` queries: two for each chunk of
+    at most part_queries queries, one when no block has rows to scan
+    (csrc/chain_*.cu)."""
+    return (2 if active else 1) * -(-queries // part_queries)
+
+
+def cdq_work(problems, arrays, work, design, blocks):
+    """Add one launch's work; return its grid barriers. `work`, for the
+    bound, is what the function needs, counted as the O(N log^2 N) CDQ
+    engine of native/chain_affine_cdq.cpp does it: over the ceil(log2 E)
+    levels of its divide and conquer each of the E events (N inserts and
+    the queries) takes part in one cross, whose two sweeps make one Fenwick
     update or query each, ceil(log2 N) steps over 3 channels at 2
     operations (compare, select); bytes = each input read once and each
     output written once (126 per anchor: keys, step, weights, f64
     constants; dp, bp, tie, struct, stored). `design` is this kernel's own
-    rescan (csrc/chain_cdq.cu): 10 operations per row a step scans (the
-    compares, the channel test and the maxima), as many rows as this data
-    needs (rows [0, t) with `prefix`, all N without), 60 per step for the
-    fold and the publication, and the same bytes."""
+    work (csrc/chain_cdq.cu), by its level schedule `arrays[6]`: each level
+    stages the rows it scans (48 bytes each: the rows below the level with
+    `prefix`, all N without), tests each of its queries against each of
+    them at 10 operations (the compares, the channel test, the maxima),
+    writes and reads 7 partials of 16 bytes per query and block with rows,
+    and folds and publishes each row at 60 operations; plus the same
+    inputs and outputs. `blocks` is the launch's grid."""
     import numpy as np
-    for p, pre in zip(problems, prefix):
+    from centrolign_tpu_torch.ops.chain_cdq_cuda import PART_QUERIES
+    N, prefix, levels = arrays[0].shape[1], arrays[5], arrays[6]
+    barriers = 1
+    for b, p in enumerate(problems):
         n = len(p[0])
         order = np.lexsort((np.arange(n), p[0]))
-        asks = np.flatnonzero(np.asarray(p[0])[order] >= 1)
-        scanned = int(asks.sum()) if pre else len(asks) * n
-        events = n + len(asks)
+        events = n + int((np.asarray(p[0])[order] >= 1).sum())
         work.add(events * _levels(events) * 2 * _levels(n) * 3 * 2, 126 * n)
-        design.add(10 * scanned + 60 * n, 126 * n)
+        design.add(0, 126 * n)
+    for b, q0, q1, _ in levels:
+        q = int(q1 - q0)
+        rows = int(q0) if prefix[b] else N
+        chunk = -(-rows // blocks)
+        active = -(-rows // chunk) if chunk else 0
+        design.add(10 * q * rows + 60 * q,
+                   48 * rows + 2 * 7 * 16 * active * q)
+        barriers += _barriers(q, PART_QUERIES, active)
+    return barriers
 
 
-def scan_work(ev, n_slots, work, design):
-    """Add one launch's work. `work`, for the bound, is what the function
-    needs with a prefix-maximum tree over the slots: each event one update
-    or query of ceil(log2 n_slots) steps at 2 operations (compare,
-    select); bytes = events (16) read and winners (4) written per event,
-    dp0 read and dp written per slot (8). `design` is this kernel's own
-    rescan (csrc/chain_scan.cu): 2 operations per slot a query scans, 10
-    per event, and the same bytes."""
-    q = ev[:, 0] == 0
+def scan_work(ev, n_slots, levels, work, design, blocks):
+    """Add one launch's work; return its grid barriers. `work`, for the
+    bound, is what the function needs with a prefix-maximum tree over the
+    slots: each event one update or query of ceil(log2 n_slots) steps at 2
+    operations (compare, select); bytes = events (16) read and winners (4)
+    written per event, dp0 read and dp written per slot (8). `design` is
+    this kernel's own work (csrc/chain_scan.cu), by its level schedule
+    `levels`: each level stages the slots below its largest bound (8 bytes
+    each), tests each of its queries against each of them at 4 operations
+    (the bound, the insert's event, the maximum), writes and reads a
+    partial of 8 bytes per query and block with slots; plus the same
+    inputs and outputs. `blocks` is the launch's grid."""
+    from centrolign_tpu_torch.ops.chain_scan_cuda import PART_QUERIES
     nbytes = 20 * len(ev) + 8 * n_slots
     work.add(2 * len(ev) * _levels(n_slots), nbytes)
-    design.add(2 * int(ev[q, 2].astype("int64").sum()) + 10 * len(ev),
-               nbytes)
+    design.add(10 * len(ev), nbytes)
+    barriers = 2
+    for q0, q1, hi, _ in levels[0]:
+        q, hi = int(q1 - q0), int(hi)
+        chunk = -(-hi // blocks)
+        chunk += chunk & 1
+        active = -(-hi // chunk) if chunk else 0
+        design.add(4 * q * hi, 8 * hi + 2 * 8 * active * q)
+        barriers += _barriers(q, PART_QUERIES, active)
+    return barriers
+
+
+def level_stats(sizes):
+    """(levels, mean and max queries a level) of a schedule's level
+    sizes."""
+    import numpy as np
+    sizes = np.asarray(sizes)
+    return (len(sizes), float(sizes.mean()) if len(sizes) else 0.0,
+            int(sizes.max()) if len(sizes) else 0)
 
 
 def max_err(got, want):
@@ -610,7 +683,7 @@ def max_err(got, want):
 def compare_cdq(problems, device, reps, full=False):
     """Pack `problems` into one launch and hold chain_cdq_scan against its
     plain version (prefix mode as pack chose it, or every row with
-    `full`). Returns (err, kernel ms, plain ms, prefix flags)."""
+    `full`). Returns (err, kernel ms, plain ms, the packed arrays)."""
     import torch
     from centrolign_tpu_torch.ops import chain_cdq as plain
     from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
@@ -623,7 +696,7 @@ def compare_cdq(problems, device, reps, full=False):
     anchors = sum(len(p[0]) for p in problems)
     got, ms = timed(lambda: cc.cdq_scan(*t, anchors=anchors), reps)
     want, plain_ms = wall_ms(lambda: plain.cdq_scan_plain(*t))
-    return max_err(got, want), ms, plain_ms, [int(x) for x in arrays[5]]
+    return max_err(got, want), ms, plain_ms, arrays
 
 
 def scan_problem(rng, n, tie_dense=False):
@@ -641,21 +714,32 @@ def scan_problem(rng, n, tie_dense=False):
             rng.random(n) < 0.95)
 
 
+def chain_events(n):
+    """Inputs of sparse_chain_scan over n anchors, each after the last on
+    both chains: every query reads the insert before it, n - 1 levels (the
+    first query has nothing below its bound)."""
+    import numpy as np
+    s = np.arange(n, dtype=np.int64) * 10 + 1
+    return (s, s + 4, s, s + 4, np.full(n, 4.0), np.ones(n, bool),
+            np.ones(n, bool))
+
+
 def compare_scan(args, device, reps):
     """Hold chain_scan_event against its plain version on the events of
     sparse_chain_scan inputs `args`. Returns (err, kernel ms, plain ms,
-    events (numpy), slots)."""
+    events (numpy), slots, the level schedule (numpy))."""
     import torch
     from centrolign_tpu_torch.ops import chain_scan as plain
     from centrolign_tpu_torch.ops import chain_scan_cuda as sc
 
-    _, _, ev_np, dp0_np = plain.build_events(*args[:6])
+    _, _, ev_np, dp0_np, levels_np = plain.build_events(*args[:6])
     ev = torch.from_numpy(ev_np).to(device)
     dp0 = torch.from_numpy(dp0_np).to(device)
-    got, ms = timed(lambda: sc.event_scan(ev, dp0, anchors=len(args[4])),
-                    reps)
+    levels = tuple(torch.from_numpy(a).to(device) for a in levels_np)
+    got, ms = timed(lambda: sc.event_scan(ev, dp0, levels,
+                                          anchors=len(args[4])), reps)
     want, plain_ms = wall_ms(lambda: plain.event_scan_plain(ev, dp0))
-    return max_err(got, want), ms, plain_ms, ev_np, len(dp0_np)
+    return max_err(got, want), ms, plain_ms, ev_np, len(dp0_np), levels_np
 
 
 def chaining_bag(rng, device, card, errs):
@@ -663,51 +747,86 @@ def chaining_bag(rng, device, card, errs):
     bag. Returns {kernel: (kernel ms, plain ms, the function's Work, the
     design's Work)} over the bag."""
     import torch
+    from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
     from centrolign_tpu_torch.ops import chain_scan_cuda as sc
 
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count
     out = {"chain_cdq_scan": [0.0, 0.0, Work(), Work()],
            "chain_scan_event": [0.0, 0.0, Work(), Work()]}
     # L3: one launch of several problems (n = 0, 1 and 8, tie-dense ones,
-    # anchors that end before they start, more anchors than threads), one
-    # of n = 4,096, and that one again with every row scanned
+    # anchors that end before they start, more anchors than threads); a
+    # chain N levels deep; a batch of unequal depths with levels of more
+    # queries than a block has threads and than a chunk of partials holds;
+    # n = 4,096 scanning the prefix and every row, and staged 8 rows at a
+    # time
     batch = [cdq_problem(rng, 0), cdq_problem(rng, 1), cdq_problem(rng, 8),
              cdq_problem(rng, 300, tie_dense=True),
              cdq_problem(rng, 400, tie_dense=True),
              cdq_problem(rng, 500, bent=True), cdq_problem(rng, 1100)]
+    unequal = [chain_problem(300), cdq_problem(rng, 2000),
+               cdq_problem(rng, 600, bent=True), two_level_problem(rng, 5000)]
     big = [cdq_problem(rng, 4096)]
-    for what, probs, full in (("a batch of 7 (n 0-1100)", batch, False),
-                              ("n 4096", big, False),
-                              ("n 4096, every row scanned", big, True)):
-        err, ms, pms, prefix = compare_cdq(probs, device, 3, full)
+    stage_rows = cc.STAGE_ROWS
+    for what, probs, full, stage in (
+            ("a batch of 7 (n 0-1100)", batch, False, stage_rows),
+            ("a chain of 2000 levels", [chain_problem(2000)], False,
+             stage_rows),
+            ("a batch of unequal depths (300, 2000, 600 bent, 5000 in 2 "
+             "levels)", unequal, False, stage_rows),
+            ("n 4096", big, False, stage_rows),
+            ("n 4096, every row scanned", big, True, stage_rows),
+            ("n 4096, staged 8 rows at a time", big, False, 8)):
+        cc.STAGE_ROWS = stage
+        try:
+            err, ms, pms, arrays = compare_cdq(probs, device, 3, full)
+        finally:
+            cc.STAGE_ROWS = stage_rows
         errs["chain_cdq_scan"] = max(errs["chain_cdq_scan"], err)
         k = out["chain_cdq_scan"]
         k[0] += ms
         k[1] += pms
-        cdq_work(probs, prefix, k[2], k[3])
-        print(f"chain_cdq_scan bag, {what} (prefix {prefix}): bit-equal, "
-              f"kernel {ms:.3f} ms, plain {pms:.1f} ms ({card})", flush=True)
-    # L4: one block a problem; the table in shared memory up to
-    # SHARED_SLOTS slots, in device memory above
+        barriers = cdq_work(probs, arrays, k[2], k[3], blocks)
+        lv = arrays[6]
+        print(f"chain_cdq_scan bag, {what} (prefix "
+              f"{[int(x) for x in arrays[5]]}, {len(lv)} levels, max "
+              f"{int((lv[:, 2] - lv[:, 1]).max())} queries a level, "
+              f"{barriers} grid barriers): bit-equal, kernel {ms:.3f} ms, "
+              f"plain {pms:.1f} ms ({card})", flush=True)
+    # L4
     empty = sc.event_scan(torch.zeros((0, 4), dtype=torch.int32,
                                       device=device),
-                          torch.zeros(1, device=device), anchors=0)
+                          torch.zeros(1, device=device),
+                          (torch.zeros((0, 4), dtype=torch.int32,
+                                       device=device),
+                           torch.zeros(0, dtype=torch.int32, device=device)),
+                          anchors=0)
     require(empty[1].numel() == 0, "an empty event scan returned winners")
-    for what, args in (
-            ("n 1", scan_problem(rng, 1)),
-            ("n 8", scan_problem(rng, 8)),
-            ("n 300 tie-dense", scan_problem(rng, 300, True)),
-            ("n 1100", scan_problem(rng, 1100)),
-            ("n 4096", scan_problem(rng, 4096)),
-            ("n 40000, table in device memory", scan_problem(rng, 40000))):
-        err, ms, pms, ev, slots = compare_scan(args, device, 3)
+    stage_rows = sc.STAGE_ROWS
+    for what, args, stage in (
+            ("n 1", scan_problem(rng, 1), stage_rows),
+            ("n 8", scan_problem(rng, 8), stage_rows),
+            ("n 300 tie-dense", scan_problem(rng, 300, True), stage_rows),
+            ("n 1100", scan_problem(rng, 1100), stage_rows),
+            ("n 4096", scan_problem(rng, 4096), stage_rows),
+            ("a chain of 2000 anchors", chain_events(2000), stage_rows),
+            ("n 12000, staged 16 slots at a time", scan_problem(rng, 12000),
+             16),
+            ("n 40000", scan_problem(rng, 40000), stage_rows)):
+        sc.STAGE_ROWS = stage
+        try:
+            err, ms, pms, ev, slots, levels = compare_scan(args, device, 3)
+        finally:
+            sc.STAGE_ROWS = stage_rows
         errs["chain_scan_event"] = max(errs["chain_scan_event"], err)
         k = out["chain_scan_event"]
         k[0] += ms
         k[1] += pms
-        scan_work(ev, slots, k[2], k[3])
+        barriers = scan_work(ev, slots, levels, k[2], k[3], blocks)
+        n_lv, mean_q, max_q = level_stats(levels[0][:, 1] - levels[0][:, 0])
         print(f"chain_scan_event bag, {what} ({len(ev)} events, {slots} "
-              f"slots): bit-equal, kernel {ms:.3f} ms, plain {pms:.1f} ms "
-              f"({card})", flush=True)
+              f"slots, {n_lv} levels, max {max_q} queries a level, "
+              f"{barriers} grid barriers): bit-equal, kernel {ms:.3f} ms, "
+              f"plain {pms:.1f} ms ({card})", flush=True)
     return out
 
 
@@ -727,6 +846,7 @@ def run_chaining_path(device, card, table, errs):
     from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
     from centrolign_tpu_torch.ops import chain_scan_cuda as sc
 
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count
     cdq_calls, scan_calls, sparse_calls = [], [], []
     cdq_entry, scan_entry = chain_cdq.chain_cdq_device, \
         chain_scan.sparse_chain_scan
@@ -805,21 +925,34 @@ def run_chaining_path(device, card, table, errs):
             "the CDQ scan's values differ from the native engine's")
         n = len(args[0])
         _, arrays = chain_cdq.pack([args], n)
+        # the host schedule alone, on the sorted rows pack made it from
+        t0 = time.perf_counter()
+        chain_cdq.level_steps(0, arrays[1][0, :, 0], arrays[0][0, :, 0])
+        sched_ms = (time.perf_counter() - t0) * 1e3
         t = [torch.from_numpy(a).to(device) for a in arrays]
-        res, ms = timed(lambda: cc.cdq_scan(*t, anchors=n), 1)
+        res, ms = timed(lambda: cc.cdq_scan(*t, anchors=n), 3)
         want, pms = wall_ms(lambda: chain_cdq.cdq_scan_plain(*t))
         errs["chain_cdq_scan"] = max(errs["chain_cdq_scan"],
                                      max_err(res, want))
-        cdq_work([args], arrays[5], table["chain_cdq_scan"]["work"],
-                 table["chain_cdq_scan"]["design"])
+        work, design = Work(), Work()
+        barriers = cdq_work([args], arrays, work, design, blocks)
+        table["chain_cdq_scan"]["work"].add(work.ops, work.bytes)
+        table["chain_cdq_scan"]["design"].add(design.ops, design.bytes)
         table["chain_cdq_scan"]["ms"] += ms
         table["chain_cdq_scan"]["plain_ms"] += pms
+        lv = arrays[6]
+        n_lv, mean_q, max_q = level_stats(lv[:, 2] - lv[:, 1])
         print(f"chain_cdq_scan on pair.fasta's {n} anchors (prefix "
               f"{int(arrays[5][0])}): dp, tie, struct, stored bit-equal to "
-              f"native, bp equal on the {int(untied.sum())} untied; kernel "
-              f"{ms:.3f} ms ({ms / n * 1e3:.3f} us a step), native engine "
-              f"{nat_ms:.3f} ms, plain {pms:.1f} ms (bit-equal) ({card})",
-              flush=True)
+              f"native, bp equal on the {int(untied.sum())} untied; "
+              f"{n_lv} levels, {mean_q:.1f} queries a level on average, "
+              f"{max_q} at most, {barriers} grid barriers; host schedule "
+              f"{sched_ms:.3f} ms; kernel {ms:.3f} ms ({ms / n_lv * 1e3:.3f} "
+              f"us a level); native engine {nat_ms:.3f} ms; plain "
+              f"{pms:.1f} ms (bit-equal); bound {work.bound()[0]:.6f} ms "
+              f"({work.bound()[1]}), the design's {design.bound()[0]:.6f} "
+              f"ms ({design.bytes} bytes, {design.ops} operations) "
+              f"({card})", flush=True)
 
     # the free-gap chains against the native parity engine, and the
     # event scan alone on each problem
@@ -839,21 +972,33 @@ def run_chaining_path(device, card, table, errs):
               flush=True)
     for args in scan_calls:
         n = len(args[4])
-        _, _, ev_np, dp0_np = chain_scan.build_events(*args[:6])
+        _, _, ev_np, dp0_np, levels_np = chain_scan.build_events(*args[:6])
+        t0 = time.perf_counter()
+        chain_scan.event_steps(ev_np, n)
+        sched_ms = (time.perf_counter() - t0) * 1e3
         ev = torch.from_numpy(ev_np).to(device)
         dp0 = torch.from_numpy(dp0_np).to(device)
-        res, ms = timed(lambda: sc.event_scan(ev, dp0, anchors=n), 3)
+        levels = tuple(torch.from_numpy(a).to(device) for a in levels_np)
+        res, ms = timed(lambda: sc.event_scan(ev, dp0, levels, anchors=n), 3)
         want, pms = wall_ms(lambda: chain_scan.event_scan_plain(ev, dp0))
         errs["chain_scan_event"] = max(errs["chain_scan_event"],
                                        max_err(res, want))
-        scan_work(ev_np, len(dp0_np), table["chain_scan_event"]["work"],
-                  table["chain_scan_event"]["design"])
+        work, design = Work(), Work()
+        barriers = scan_work(ev_np, n, levels_np, work, design, blocks)
+        table["chain_scan_event"]["work"].add(work.ops, work.bytes)
+        table["chain_scan_event"]["design"].add(design.ops, design.bytes)
         table["chain_scan_event"]["ms"] += ms
         table["chain_scan_event"]["plain_ms"] += pms
-        print(f"chain_scan_event on {n} anchors ({len(ev_np)} events, "
-              f"{len(dp0_np)} slots, table in "
-              f"{'shared' if len(dp0_np) <= sc.SHARED_SLOTS else 'device'} "
-              f"memory): kernel {ms:.3f} ms, plain {pms:.1f} ms (bit-equal) "
+        steps = levels_np[0]
+        n_lv, mean_q, max_q = level_stats(steps[:, 1] - steps[:, 0])
+        print(f"chain_scan_event on {n} anchors ({len(ev_np)} events): "
+              f"{n_lv} levels, {mean_q:.1f} queries a level on average, "
+              f"{max_q} at most, {barriers} grid barriers; host schedule "
+              f"{sched_ms:.3f} ms; kernel {ms:.3f} ms "
+              f"({ms / max(n_lv, 1) * 1e3:.3f} us a level); plain "
+              f"{pms:.1f} ms (bit-equal); bound {work.bound()[0]:.6f} ms "
+              f"({work.bound()[1]}), the design's {design.bound()[0]:.6f} "
+              f"ms ({design.bytes} bytes, {design.ops} operations) "
               f"({card})", flush=True)
     return got
 
@@ -994,7 +1139,7 @@ def main() -> int:
     for name, (ms, pms, w, design) in chain_bag.items():
         print(f"chaining bag, {name}: bit-equal, kernel {ms:.3f} ms, plain "
               f"{pms:.1f} ms, bound {w.bound()[0]:.6f} ms (the function's "
-              f"work), {design.bound()[0]:.6f} ms (this design's rescan) "
+              f"work), {design.bound()[0]:.6f} ms (this design's work) "
               f"({card})", flush=True)
 
     # 4. the pairwise path
@@ -1298,7 +1443,7 @@ def main() -> int:
               f"{k['plain_ms']:.1f} ms, bound {k['work'].bound()[0]:.6f} ms "
               f"({k['work'].bound()[1]}; the function's work), "
               f"{k['design'].bound()[0]:.6f} ms ({k['design'].bound()[1]}; "
-              f"this design's rescan), library none ({card})", flush=True)
+              f"this design's work), library none ({card})", flush=True)
 
     # the end: no jax, nothing of the JAX package
     leaked = sorted(m for m in sys.modules
