@@ -5,7 +5,10 @@ that CENTROLIGN_TORCH_DEVICE names (cuda by default; see device.py).
 
     python -m centrolign_tpu_torch.cli [options] seqs.fasta > out
 
-Not ported yet: --hosts N > 1 (the pool and jax.distributed executors).
+--hosts N > 1 runs the guide tree's independent subproblems over N worker
+processes (parallel/scheduler.py), or, with CENTROLIGN_TPU_EXECUTOR=jaxdist
+and more than 2 sequences, over N ranks of torch.distributed
+(parallel/multiprocess.py). Each worker or rank runs on its own device.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--force-gfa-output", action="store_true")
     ap.add_argument("--bond-prefix", default="")
     # extension over the reference CLI: layer-parallel subproblem dispatch
-    # across worker processes/hosts (not ported yet: main() refuses N > 1)
+    # across worker processes/hosts
     ap.add_argument("--hosts", type=int, default=None)
     return ap
 
@@ -122,13 +125,6 @@ def main(argv=None) -> int:
 
     n_hosts = args.hosts if args.hosts is not None else int(
         os.environ.get("CENTROLIGN_TPU_HOSTS", "1"))
-    if n_hosts > 1:
-        # the JAX package hands N > 1 hosts to its pool executor, or to its
-        # jax.distributed one (CENTROLIGN_TPU_EXECUTOR=jaxdist, more than 2
-        # sequences); with one host it runs serially whatever the executor
-        print("error: multi-host execution (--hosts > 1) is not yet ported",
-              file=sys.stderr)
-        return 1
     try:
         device = resolve_device()
     except (RuntimeError, ValueError) as e:
@@ -158,13 +154,33 @@ def main(argv=None) -> int:
         newick = in_order_newick_string(seq_names)
     tree = Tree(newick)
 
+    if n_hosts > 1 and len(seq_names) > 2 and os.environ.get(
+            "CENTROLIGN_TPU_EXECUTOR", "pool") == "jaxdist":
+        # one process per host under torch.distributed, subproblem GFAs
+        # exchanged through all-gathers (parallel/multiprocess.py). The
+        # ranks re-derive everything (Core, any -R checkpoint replay), so
+        # the parent does neither; rank 0's output is printed here.
+        import tempfile
+        from .parallel.multiprocess import run_multiprocess_msa
+        with tempfile.NamedTemporaryFile(suffix=".gfa") as tmp:
+            run_multiprocess_msa(n_hosts, params.get("fasta_name"),
+                                 params.get("tree_name") or None,
+                                 tmp.name, params=params)
+            with open(tmp.name) as f:
+                sys.stdout.write(f.read())
+        return 0
+
     core = Core(parsed, tree, device)
     if len(seq_names) == 2:
         params.set("preserve_subproblems", True)
     params.apply(core)
     if params.get("restart"):
         core.restart()
-    core.execute()
+    if n_hosts > 1:
+        from .parallel.scheduler import distributed_execute
+        distributed_execute(core, n_hosts)
+    else:
+        core.execute()
 
     if len(seq_names) == 2 and not args.force_gfa_output:
         root = core.root_subproblem()

@@ -36,11 +36,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rows at a time; the event scan on n 1, 8, 300 tie-dense, 1,100, 4,096,
    a chain of 2,000 anchors, n 12,000 staged 16 slots at a time and n
    40,000; each with its levels, queries a level and grid barriers;
+3e. the lane-sharded Gotoh (L5) against its plain version with 1, 2, 3 and
+   4 shards on the card (and across the cards when there are two or more)
+   on a bag (npw 1-3, both lane orientations, swap_pref both, empty and
+   tiny gaps) and a related 4,500 x 4,500 pair: bit-equal scores and
+   backpointers, alignments and scores equal to the single-problem entry;
+   time, launches, halo copies and bound;
 4. the pairwise path: the port's CLI on benchdata/pair.fasta; the CIGAR
    must equal benchdata/ref_pair.cigar.txt byte for byte, both Gotoh
    kernels must have launched, and the device tier must have taken 28 gaps
    of 24,191,366 DP cells; then the Gotoh kernels are timed against their
    plain versions on the jobs this path dispatched;
+4b. pair.fasta through the sequence-parallel tier on two shards of the
+   card (CENTROLIGN_TPU_SHARD_MIN_CELLS=14000000): the CIGAR must equal the
+   reference, the tier must have taken the 4356 x 3330 gap alone and the
+   sharded kernel launched; the kernel is timed there against its plain
+   version;
 5. the MSA path: the port's CLI on benchdata/five.fasta with five.nwk and
    CENTROLIGN_TORCH_DEVICE_DAG=1; the GFA must equal benchdata/ref_five.gfa
    byte for byte, all four kernels must have launched, the DAG tier must
@@ -78,8 +89,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    function needs: the native CDQ engine's O(N log^2 N) steps, a
    prefix-maximum tree's O(E log n)) and the bound of this design's own
    work (rows staged per level, query x row tests, partials);
+9. five.fasta with --hosts 2 (the pool executor, two workers on the card):
+   the GFA must equal the reference, every worker must have run on the
+   card and the workers' kernel launches (sent back with their results)
+   must be over 0, with no worker recomputed in the parent; wall beside
+   5b's serial run;
+10. five.fasta with CENTROLIGN_TPU_EXECUTOR=jaxdist --hosts 2 (two
+   torch.distributed ranks on gloo, one card): the same GFA gate, each
+   rank on the card, their launches; wall;
 and at the end neither jax nor any module of the JAX package may be in the
-process. Each path runs with the launch counters set to 0 just before it
+process, nor in any worker or rank. Each path runs with the launch counters set to 0 just before it
 and read just after. The last three lines of standard output are the
 kernel table, the card's name and power limit, and {"ok": true, ...}.
 """
@@ -103,6 +122,7 @@ GOTOH_SRC = "centrolign_tpu_torch/csrc/gotoh.cu"
 DAG_SRC = "centrolign_tpu_torch/csrc/popoa_dag.cu"
 CDQ_SRC = "centrolign_tpu_torch/csrc/chain_cdq.cu"
 SCAN_SRC = "centrolign_tpu_torch/csrc/chain_scan.cu"
+SHARD_SRC = "centrolign_tpu_torch/csrc/sharded_gotoh.cu"
 # the TPU kernels (and lax device loops) these replace
 KERNELS = {
     "gotoh_fill": (GOTOH_SRC, "centrolign_tpu/ops/gotoh_pallas.py:602"),
@@ -113,8 +133,14 @@ KERNELS = {
     "popoa_dag_traceback": (DAG_SRC, "centrolign_tpu/ops/popoa_dag.py:376"),
     "chain_cdq_scan": (CDQ_SRC, "centrolign_tpu/ops/chain_cdq.py:58"),
     "chain_scan_event": (SCAN_SRC, "centrolign_tpu/ops/chain_scan.py:53"),
+    "sharded_gotoh_fill": (SHARD_SRC,
+                           "centrolign_tpu/parallel/sharded_gotoh.py:156"),
 }
-SOURCES = ["gotoh", "popoa_dag", "chain_cdq", "chain_scan"]
+SOURCES = ["gotoh", "popoa_dag", "chain_cdq", "chain_scan", "sharded_gotoh"]
+# pair.fasta through the sequence-parallel tier: with the threshold at
+# 14,000,000 cells only the 4356 x 3330 gap (14,520,000 cells) takes it
+SHARD_MIN_CELLS = "14000000"
+PAIR_SHARD_GAPS = 1
 PAIR_GAPS, PAIR_CELLS = 28, 24_191_366
 FIVE_DAG_JOBS, FIVE_DAG_CELLS = 12, 2_731_723
 FIVE_CHAIN_JOBS, FIVE_CHAIN_CELLS = 88, 21_645_992
@@ -871,7 +897,9 @@ def run_chaining_path(device, card, table, errs):
             kept.append(c)
         t0 = time.perf_counter()
         chain = parity(self, matches, *args)
-        sparse_calls.append((self, kept, args, chain,
+        # fill-in anchoring rewrites the returned list in place
+        # (anchorer.py::_fill_in_anchor_chain), so keep it as returned
+        sparse_calls.append((self, kept, args, list(chain),
                              time.perf_counter() - t0))
         return chain
 
@@ -1004,7 +1032,286 @@ def run_chaining_path(device, card, table, errs):
 
 
 # ---------------------------------------------------------------------------
+# the lane-sharded Gotoh (L5)
+
+
+def shard_inputs(s1, s2, params, shards, swap):
+    """fill_shards' arguments for one gap over `shards` lane shards."""
+    import numpy as np
+    from centrolign_tpu_torch.ops.gotoh import _build_skew_inputs
+    from centrolign_tpu_torch.parallel import sharded_gotoh as sh
+    V1, V2 = len(s1), len(s2)
+    lane_is_i = V1 <= V2
+    W = sh._bucket((V1 if lane_is_i else V2) + 1, 128 * shards)
+    nd = V1 + V2 + 1
+    a, b = _build_skew_inputs(s1, s2, lane_is_i, W, nd + 128)
+    return (a[None], b[None], np.array([V1], np.int32),
+            np.array([V2], np.int32), params, nd, lane_is_i, swap)
+
+
+def shard_work(s1, s2, params, shards, work):
+    """One sharded fill's work: ops per cell as gotoh_work counts them;
+    bytes = the lane and other-side rows, the backpointers and the
+    score."""
+    V1, V2 = len(s1), len(s2)
+    W = -(-(min(V1, V2) + 1) // (128 * shards)) * 128 * shards
+    work.add((V1 + 1) * (V2 + 1) * (3 + 18 * params.num_pw),
+             4 * (3 * W + V1 + V2 + 129) + 2 * (V1 + V2 + 1) * W + 4)
+
+
+def compare_sharded(s1, s2, params, devices, swap, reps, plain):
+    """The sharded fill over `devices` with the kernel and with its plain
+    version on the card: bit-equal scores and backpointers. The plain
+    fill's result does not depend on how the lanes are cut
+    (tests/test_torch_sharded_gotoh.py), so it runs once per gap and lane
+    width, on one shard, and `plain` keeps it for the other shard counts.
+    Returns (max_abs_err, kernel ms, plain ms, launches, halo copies) of
+    one fill (CUDA events around the queued launches; the gather to the
+    host is outside the time)."""
+    import torch
+    from centrolign_tpu_torch.ops import sharded_gotoh_cuda as shg
+    from centrolign_tpu_torch.ops.sharded_gotoh import chunk_fill_plain
+    from centrolign_tpu_torch.parallel import sharded_gotoh as sh
+    a, b, V1, V2, p, nd, lane_is_i, swap = shard_inputs(
+        s1, s2, params, len(devices), swap)
+    args = (a, b, V1, V2, p, [list(devices)], nd, lane_is_i, swap, True)
+    shg.reset_counters()
+    sh.fill_shards(*args)
+    torch.cuda.synchronize()
+    launches, copies = shg.LAUNCHES, shg.HALO_COPIES
+    rows, ms = timed(lambda: sh.fill_shards(*args), reps)
+    got = sh.gather(rows)
+    key = (id(s1), id(s2), p.num_pw, swap, a.shape[1])
+    if key not in plain:
+        one = (a, b, V1, V2, p, [[devices[0]]], nd, lane_is_i, swap, True)
+        rows_p, pms = wall_ms(lambda: sh.fill_shards(
+            *one, chunk=chunk_fill_plain))
+        plain[key] = (sh.gather(rows_p), pms)
+    want, pms = plain[key]
+    err = max_err([torch.from_numpy(got[0]),
+                   torch.from_numpy(got[1].view("int16"))],
+                  [torch.from_numpy(want[0]),
+                   torch.from_numpy(want[1].view("int16"))])
+    return err, ms, pms, launches, copies
+
+
+def shard_bag(rng, params, device, card, errs):
+    """Phase 3e: the sharded fill on a bag with 1-4 shards on the card
+    (and across the cards when there are two or more), against its plain
+    version, and the alignment against the single-problem entry (K4)."""
+    import numpy as np
+    import torch
+    from centrolign_tpu_torch.ops import gotoh_cuda as gc
+    from centrolign_tpu_torch.ops.align_params import AlignmentParams
+    from centrolign_tpu_torch.parallel import sharded_gotoh as sh
+
+    def pair(n1, n2):
+        s1 = rng.integers(0, 4, n1).astype(np.int32)
+        s2 = (np.resize(s1, n2) if n1 else rng.integers(0, 4, n2)
+              ).astype(np.int32)
+        if n2:
+            s2[rng.integers(0, n2, max(1, n2 // 10))] = rng.integers(0, 4)
+        return s1, s2
+
+    def prm(npw):
+        return AlignmentParams(params.match, params.mismatch,
+                               params.gap_open[:npw], params.gap_extend[:npw])
+
+    bag = [(*pair(n1, n2), prm(npw), swap) for n1, n2, npw, swap in (
+        (0, 0, 3, False), (0, 7, 1, True), (5, 0, 2, False),
+        (1, 1, 3, True), (3, 200, 2, False), (200, 3, 3, True),
+        (700, 640, 1, True), (640, 700, 3, False), (1500, 1300, 2, True),
+        (1300, 1500, 3, False))]
+    big = (*pair(4500, 4500), params, False)
+    layouts = [[device] * n for n in (1, 2, 3, 4)]
+    if torch.cuda.device_count() >= 2:
+        layouts.append([torch.device("cuda", k)
+                        for k in range(torch.cuda.device_count())])
+    plain = {}
+    for devices in layouts:
+        n = len(devices)
+        across = len(set(devices)) > 1
+        where = f"{n} cards" if across else f"{n} shards on one card"
+        tot = [0.0, 0.0, 0, 0]
+        work = Work()
+        for s1, s2, p, swap in bag:
+            err, ms, pms, launches, copies = compare_sharded(
+                s1, s2, p, devices, swap, 2, plain)
+            errs["sharded_gotoh_fill"] = max(errs["sharded_gotoh_fill"], err)
+            tot = [tot[0] + ms, tot[1] + pms, tot[2] + launches,
+                   tot[3] + copies]
+            shard_work(s1, s2, p, n, work)
+            aln, score = sh.sharded_gotoh_align(s1, s2, p, devices,
+                                                swap_pref=swap)
+            want, want_score = gc.gotoh_align_device(s1, s2, p, swap,
+                                                     device=device)
+            require(score == want_score and np.array_equal(aln, want),
+                    f"the sharded alignment of {len(s1)} x {len(s2)} over "
+                    f"{where} differs from gotoh_align_device")
+        print(f"sharded_gotoh_fill bag of {len(bag)} gaps, {where}: "
+              f"bit-equal to the plain version, alignments equal to "
+              f"gotoh_align_device; kernel {tot[0]:.3f} ms, {tot[2]} "
+              f"launches, {tot[3]} halo copies; plain {tot[1]:.1f} ms (one "
+              f"shard, once per gap and width); bound "
+              f"{work.bound()[0]:.6f} ms ({card})", flush=True)
+        s1, s2, p, swap = big
+        err, ms, pms, launches, copies = compare_sharded(s1, s2, p, devices,
+                                                         swap, 2, plain)
+        errs["sharded_gotoh_fill"] = max(errs["sharded_gotoh_fill"], err)
+        aln, score = sh.sharded_gotoh_align(s1, s2, p, devices)
+        want, want_score = gc.gotoh_align_device(s1, s2, p, swap,
+                                                 device=device)
+        require(score == want_score and np.array_equal(aln, want),
+                f"the sharded alignment of 4500 x 4500 over {where} differs "
+                f"from gotoh_align_device")
+        work = Work()
+        shard_work(s1, s2, p, n, work)
+        print(f"sharded_gotoh_fill 4500 x 4500 (20.25M cells), {where}: "
+              f"bit-equal, alignment and score {score} equal to "
+              f"gotoh_align_device; kernel {ms:.3f} ms over {launches} "
+              f"launches ({ms / (len(s1) + len(s2) + 1) * 1e3:.3f} us a "
+              f"diagonal), {copies} halo copies; plain {pms:.1f} ms (one "
+              f"shard); bound {work.bound()[0]:.6f} ms ({card})", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # paths
+
+
+def run_shard_tier(device, card, table, errs):
+    """Phase 4b: pair.fasta with the sequence-parallel tier on two shards
+    of the card (CENTROLIGN_TPU_SHARD_MIN_CELLS=14000000,
+    CENTROLIGN_TORCH_SHARD_DEVICES=cuda:0,cuda:0). Checks the CIGAR, the
+    tier's gap and the kernel's launches, then times the kernel at that gap
+    against its plain version. Returns the path's counts."""
+    from centrolign_tpu_torch import metrics
+    from centrolign_tpu_torch.parallel import sharded_gotoh as sh_mod
+
+    calls = []
+    align = sh_mod.sharded_gotoh_align
+
+    def recording_align(s1, s2, p, mesh, swap_pref=False):
+        calls.append((s1, s2, p, list(mesh), swap_pref))
+        return align(s1, s2, p, mesh, swap_pref=swap_pref)
+
+    sh_mod.sharded_gotoh_align = recording_align
+    os.environ["CENTROLIGN_TPU_SHARD_MIN_CELLS"] = SHARD_MIN_CELLS
+    os.environ["CENTROLIGN_TORCH_SHARD_DEVICES"] = f"{device},{device}"
+    try:
+        reset_counts()
+        rc, out, wall = run_cli(["-v", "0", PAIR])
+        got = counts()
+    finally:
+        sh_mod.sharded_gotoh_align = align
+        os.environ.pop("CENTROLIGN_TPU_SHARD_MIN_CELLS")
+        os.environ.pop("CENTROLIGN_TORCH_SHARD_DEVICES")
+    require(rc == 0, f"cli.main returned {rc} on pair.fasta with the "
+            "sequence-parallel tier")
+    with open(REF_CIGAR) as f:
+        require(out == f.read(), "pair.fasta CIGAR through the "
+                "sequence-parallel tier differs from "
+                "benchdata/ref_pair.cigar.txt")
+    posh = metrics.counters.get("posh", [0, 0, 0.0])
+    require(posh[0] == PAIR_SHARD_GAPS and len(calls) == PAIR_SHARD_GAPS
+            and got["sharded_gotoh_fill"] > 0,
+            f"the sequence-parallel tier took {posh[0]} gaps with "
+            f"{got['sharded_gotoh_fill']} launches, want {PAIR_SHARD_GAPS} "
+            f"gap and launches")
+    print(f"pair.fasta through the sequence-parallel tier (2 shards on "
+          f"the card): CIGAR byte-identical to the reference; wall "
+          f"{wall:.3f} s; posh {posh[0]} gap, {posh[1]} cells, "
+          f"{posh[2] * 1e3:.3f} ms on the host clock (fill, gather and "
+          f"host traceback); launches {json.dumps(got)} ({card})",
+          flush=True)
+    row = table["sharded_gotoh_fill"]
+    for s1, s2, p, mesh, swap in calls:
+        err, ms, pms, launches, copies = compare_sharded(s1, s2, p, mesh,
+                                                         swap, 3, {})
+        errs["sharded_gotoh_fill"] = max(errs["sharded_gotoh_fill"], err)
+        shard_work(s1, s2, p, len(mesh), row["work"])
+        row["ms"] += ms
+        row["plain_ms"] += pms
+        print(f"sharded_gotoh_fill on pair.fasta's {len(s1)} x {len(s2)} "
+              f"gap, {len(mesh)} shards on the card: bit-equal; kernel "
+              f"{ms:.3f} ms over {launches} launches "
+              f"({ms / (len(s1) + len(s2) + 1) * 1e3:.3f} us a diagonal), "
+              f"{copies} halo copies; plain {pms:.1f} ms (one shard); bound "
+              f"{row['work'].bound()[0]:.6f} ms ({card})", flush=True)
+    return got
+
+
+def run_executors(device, card, serial_wall, serial_gfa):
+    """Phases 9-10: five.fasta with --hosts 2 over the pool executor, then
+    over two torch.distributed ranks (CENTROLIGN_TPU_EXECUTOR=jaxdist), on
+    the card: the GFA is the reference's, every worker and rank resolved
+    the card, their launches came back to this process, no worker was
+    recomputed here. Walls beside the serial run's."""
+    from centrolign_tpu_torch.parallel import counters as pcounters
+    from centrolign_tpu_torch.parallel import multiprocess as mp_mod
+    from centrolign_tpu_torch.parallel import scheduler
+
+    with open(REF_GFA) as f:
+        ref = f.read()
+    require(serial_gfa == ref, "the serial five.fasta GFA is not the "
+            "reference")
+    argv = ["-v", "0", "--hosts", "2", "-T", FIVE_TREE, FIVE]
+    kernels = ("gotoh_cuda.FILL_LAUNCHES", "gotoh_cuda.TRACEBACK_LAUNCHES")
+
+    # 9. the pool executor
+    pcounters.MERGED.clear()
+    pcounters.DEVICES.clear()
+    recovered = scheduler.RECOVERED
+    reset_counts()
+    rc, out, wall = run_cli(argv)
+    got = counts()
+    require(rc == 0 and out == ref, "five.fasta with --hosts 2 (pool) gave "
+            "another GFA than benchdata/ref_five.gfa")
+    workers = {k: pcounters.MERGED.get(k, 0) for k in kernels}
+    require(scheduler.RECOVERED == recovered,
+            "a pool worker failed and was recomputed in the parent")
+    require(pcounters.DEVICES == {str(device)},
+            f"pool workers ran on {sorted(map(str, pcounters.DEVICES))}")
+    require(all(v > 0 for v in workers.values()),
+            f"the pool workers launched {workers}")
+    print(f"five.fasta, --hosts 2 (pool, 2 workers on the card): GFA "
+          f"byte-identical to the reference; wall {wall:.3f} s (serial "
+          f"{serial_wall:.3f} s); workers' launches {json.dumps(workers)}, "
+          f"this process's launches {json.dumps(got)}; no worker "
+          f"recomputed ({card})",
+          flush=True)
+
+    # 10. the torch.distributed executor
+    ranks = []
+    run_mp = mp_mod.run_multiprocess_msa
+
+    def recording_run(*args, **kw):
+        out_ = run_mp(*args, **kw)
+        ranks.extend(out_)
+        return out_
+
+    mp_mod.run_multiprocess_msa = recording_run
+    os.environ["CENTROLIGN_TPU_EXECUTOR"] = "jaxdist"
+    try:
+        reset_counts()
+        rc, out, wall = run_cli(argv)
+        got = counts()
+    finally:
+        mp_mod.run_multiprocess_msa = run_mp
+        os.environ.pop("CENTROLIGN_TPU_EXECUTOR")
+    require(rc == 0 and out == ref, "five.fasta with jaxdist over 2 ranks "
+            "gave another GFA than benchdata/ref_five.gfa")
+    require(len(ranks) == 2 and all(r["device"] == str(device)
+                                    for r in ranks),
+            f"the ranks ran on {[r['device'] for r in ranks]}")
+    per_rank = [{k: r[k] for k in kernels} for r in ranks]
+    require(sum(r[kernels[0]] for r in ranks) > 0,
+            f"the ranks launched {per_rank}")
+    print(f"five.fasta, CENTROLIGN_TPU_EXECUTOR=jaxdist --hosts 2 (2 ranks "
+          f"on gloo, one card): GFA byte-identical to the reference; wall "
+          f"{wall:.3f} s (serial {serial_wall:.3f} s); launches per rank "
+          f"{json.dumps(per_rank)}, this process's launches "
+          f"{json.dumps(got)} ({card})",
+          flush=True)
 
 
 def run_cli(argv):
@@ -1027,8 +1334,9 @@ def reset_counts():
     from centrolign_tpu_torch.ops import chain_scan_cuda as sc
     from centrolign_tpu_torch.ops import gotoh_cuda as gc
     from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+    from centrolign_tpu_torch.ops import sharded_gotoh_cuda as shg
     metrics.reset()
-    for mod in (gc, pdc, cc, sc):
+    for mod in (gc, pdc, cc, sc, shg):
         mod.reset_counters()
 
 
@@ -1037,6 +1345,7 @@ def counts():
     from centrolign_tpu_torch.ops import chain_scan_cuda as sc
     from centrolign_tpu_torch.ops import gotoh_cuda as gc
     from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+    from centrolign_tpu_torch.ops import sharded_gotoh_cuda as shg
     return {"gotoh_fill": gc.FILL_LAUNCHES,
             "gotoh_traceback": gc.TRACEBACK_LAUNCHES,
             "popoa_dag_fill": pdc.FILL_LAUNCHES,
@@ -1046,10 +1355,13 @@ def counts():
             "chain_jobs": gc.DISPATCHED_JOBS,
             "dag_jobs": pdc.DISPATCHED_JOBS,
             "cdq_anchors": cc.ANCHORS,
-            "scan_anchors": sc.ANCHORS}
+            "scan_anchors": sc.ANCHORS,
+            "sharded_gotoh_fill": shg.LAUNCHES,
+            "halo_copies": shg.HALO_COPIES}
 
 
 def main() -> int:
+    run_t0 = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "centrolign_tpu_torch")):
         print("error: run chip_smoke.py from a checkout of the repository",
               file=sys.stderr)
@@ -1079,9 +1391,10 @@ def main() -> int:
     # 2. build
     from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
     from centrolign_tpu_torch.ops import chain_scan_cuda as sc
+    from centrolign_tpu_torch.ops import sharded_gotoh_cuda as shg
     t0 = time.perf_counter()
     _build.build_libraries(SOURCES)
-    for mod in (gc, pdc, cc, sc):
+    for mod in (gc, pdc, cc, sc, shg):
         mod._lib()
     print(f"build: {', '.join(sorted({src for src, _ in KERNELS.values()}))} "
           f"with nvcc {' '.join(_build.NVCC_FLAGS)} in "
@@ -1142,6 +1455,9 @@ def main() -> int:
               f"work), {design.bound()[0]:.6f} ms (this design's work) "
               f"({card})", flush=True)
 
+    # 3e. the lane-sharded Gotoh on its bag, 1-4 shards on the card
+    shard_bag(rng, params, device, card, errs)
+
     # 4. the pairwise path
     dispatched, dag_dispatched = [], []
     dispatch, dag_batch = stitcher_mod.gotoh_dispatch, \
@@ -1191,6 +1507,10 @@ def main() -> int:
         print(f"pair.fasta jobs, {name}: bit-equal, kernel {ms:.3f} ms, "
               f"plain {pms:.1f} ms over {len(dispatched)} dispatches "
               f"({card})", flush=True)
+
+    # 4b. pair.fasta through the sequence-parallel tier, two shards on the
+    # card: only the 4356 x 3330 gap is over its threshold
+    shard_counts = run_shard_tier(device, card, table, errs)
 
     # 5. the MSA path
     dispatched.clear()
@@ -1445,10 +1765,17 @@ def main() -> int:
               f"{k['design'].bound()[0]:.6f} ms ({k['design'].bound()[1]}; "
               f"this design's work), library none ({card})", flush=True)
 
-    # the end: no jax, nothing of the JAX package
+    # 9-10. five.fasta over two pool workers and over two torch.distributed
+    # ranks on the card, beside the serial run of 5b (the same settings)
+    run_executors(device, card, wall_off, out_off)
+
+    # the end: no jax, nothing of the JAX package, in this process or in
+    # any worker or rank
+    from centrolign_tpu_torch.parallel import counters as pcounters
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "centrolign_tpu" or m.startswith("centrolign_tpu."))
+    leaked += sorted(pcounters.FOREIGN)
     require(not leaked, f"modules of jax or the JAX package were imported: "
             f"{leaked[:5]}")
 
@@ -1458,7 +1785,8 @@ def main() -> int:
                 "popoa_dag_traceback": five_counts["popoa_dag_traceback"],
                 "gotoh_align_single": single_counts["gotoh_fill"],
                 "chain_cdq_scan": chain_counts["chain_cdq_scan"],
-                "chain_scan_event": chain_counts["chain_scan_event"]}
+                "chain_scan_event": chain_counts["chain_scan_event"],
+                "sharded_gotoh_fill": shard_counts["sharded_gotoh_fill"]}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         k = table[name]
@@ -1468,6 +1796,7 @@ def main() -> int:
                      "max_abs_err": errs[name], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+    print(f"chip_smoke ran {time.perf_counter() - run_t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

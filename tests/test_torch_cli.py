@@ -33,6 +33,7 @@ _PORT = r"""
 import contextlib, io, json, sys
 sys.path.insert(0, {repo!r})
 from centrolign_tpu_torch import cli, metrics
+from centrolign_tpu_torch.parallel import counters
 from centrolign_tpu_torch.ops import (chain_cdq_cuda, chain_scan_cuda,
                                      gotoh_cuda, popoa_dag_cuda)
 out = io.StringIO()
@@ -42,18 +43,23 @@ sys.stdout.write(out.getvalue())
 mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
         or m == "centrolign_tpu" or m.startswith("centrolign_tpu.")]
 print(json.dumps({{"rc": rc, "jobs": gotoh_cuda.DISPATCHED_JOBS,
+                  "worker_jobs": counters.MERGED.get(
+                      "gotoh_cuda.DISPATCHED_JOBS", 0),
                   "fills": gotoh_cuda.FILL_LAUNCHES,
                   "dag_jobs": popoa_dag_cuda.DISPATCHED_JOBS,
                   "dag_fills": popoa_dag_cuda.FILL_LAUNCHES,
                   "pod": metrics.counters["pod"][1] if "pod" in metrics.counters else 0,
                   "podag": metrics.counters["podag"][1] if "podag" in metrics.counters else 0,
+                  "posh": metrics.counters["posh"][0] if "posh" in metrics.counters else 0,
                   "cdq": [chain_cdq_cuda.PLAIN_PROBLEMS,
                           chain_cdq_cuda.PLAIN_ANCHORS,
                           chain_cdq_cuda.LAUNCHES],
                   "scan": [chain_scan_cuda.PLAIN_PROBLEMS,
                            chain_scan_cuda.PLAIN_ANCHORS,
                            chain_scan_cuda.LAUNCHES],
-                  "foreign": mods}}), file=sys.stderr)
+                  "foreign": mods,
+                  "workers_foreign": sorted(counters.FOREIGN)}}),
+      file=sys.stderr)
 sys.exit(rc)
 """
 
@@ -173,10 +179,20 @@ def test_no_fallback_without_cuda(pairs):
 
 
 def test_multi_host_is_not_ported(pairs):
-    r, stats = _run_port(["-v", "0", "--hosts", "2", pairs[1]],
-                         CENTROLIGN_TORCH_DEVICE="cpu")
-    assert r.returncode != 0
-    assert "not yet ported" in r.stderr
+    """The name is historical: --hosts 2 runs the pool executor
+    (parallel/scheduler.py), whose CIGAR is the JAX CLI's with --hosts 2;
+    its worker (a leaf's calibration) loads neither jax nor the JAX
+    package."""
+    argv = ["-v", "0", "-u", "--hosts", "2", pairs[1]]
+    ref = _run_jax_cli(argv)
+    assert ref.returncode == 0, ref.stderr
+    r, stats = _run_port(argv, CENTROLIGN_TORCH_DEVICE="cpu",
+                         CENTROLIGN_TORCH_DEVICE_MIN_CELLS="10000")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout == ref.stdout
+    assert stats["jobs"] > 0 and stats["fills"] == 0
+    assert stats["foreign"] == [] and stats["workers_foreign"] == []
+    assert "Worker failed" not in r.stderr
 
 
 def test_jaxdist_with_one_host_runs_serially(tmp_path):
