@@ -24,8 +24,8 @@ COUNTERS = {
                        "PLAIN_ANCHORS"),
     "chain_scan_cuda": ("LAUNCHES", "PROBLEMS", "ANCHORS", "PLAIN_PROBLEMS",
                         "PLAIN_ANCHORS"),
-    "sharded_gotoh_cuda": ("LAUNCHES", "HALO_COPIES", "PROBLEMS",
-                           "PLAIN_PROBLEMS"),
+    "sharded_gotoh_cuda": ("LAUNCHES", "HALO_COPIES", "EVENT_WAITS",
+                           "PROBLEMS", "PLAIN_PROBLEMS"),
 }
 
 

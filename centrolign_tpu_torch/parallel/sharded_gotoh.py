@@ -13,14 +13,16 @@ A "mesh" here is a grid of devices, gap rows x lane shards
 or on the CPU. One process drives every shard, as the JAX package's single
 controller does. Each shard fills its lanes one chunk of H diagonals per
 launch (ops/sharded_gotoh.py, csrc/sharded_gotoh.cu on a card, the plain
-version on the CPU) and publishes its last H lanes; its right neighbour
-reads them at its next chunk. Launches go to each device's current stream
-in chunk order, shard by shard, so a shard reads a halo only after it was
-written; between two devices the halo is copied by Tensor.copy_, which
-orders the copy after the source stream's work and the destination
-stream's later work after the copy. Between shards on one device the
-neighbour reads the halo where it was written. Nothing spins between
-launches.
+version on the CPU), its lanes cut into blocks of about BLOCK_LANES, and
+publishes its last H lanes; its right neighbour reads them at its next
+chunk. On a card every shard has a stream of its own (`chunk_schedule`,
+queued by ops/sharded_gotoh_cuda.py::run_schedule): shard s's chunk c
+waits only for the event after its left neighbour's chunk c - 1, so the
+shards of one card run side by side; between two cards the halo is
+copied on the destination's stream after that event. A halo slot per
+chunk is never rewritten, and nothing spins between launches. Before
+fill_shards returns, the callers' current streams wait for every shard's
+stream.
 
 `sharded_gotoh_align` fills one gap with backpointers streamed out of the
 fill (uint16, (num_diags, W)), gathers them and walks them on the host;
@@ -38,10 +40,14 @@ from ..device import resolve_device
 from ..ops import sharded_gotoh_cuda
 from ..ops.align_params import MININF
 from ..ops.gotoh import _build_skew_inputs, _traceback_bp
-from ..ops.sharded_gotoh import HALO_Q, PLANES
+from ..ops.sharded_gotoh import HALO_Q, block_count, run_schedule_plain
 
-# diagonals a shard fills per launch; at most a shard's lanes
-HALO = 64
+# diagonals a shard fills per launch (at most a shard's lanes), and the
+# lanes a block of a shard owns (fewer blocks where one would own fewer
+# than H, so at most 2 H - 1: ops/sharded_gotoh.py::block_count); chosen
+# by chip_smoke.py's phase 3f (PERF.md)
+HALO = 128
+BLOCK_LANES = 128
 
 
 def _bucket(n: int, quantum: int) -> int:
@@ -74,15 +80,48 @@ def _flat(mesh) -> list:
     return [d for row in mesh for d in row]
 
 
+def chunk_schedule(gap_n: int, lane_n: int, chunks: int, peer) -> list:
+    """The order in which fill_shards queues its work, as tuples over the
+    shards k = (gap row, lane shard):
+    ("start", k)          k's stream waits for the caller's stream;
+    ("wait", k, j, c)     k's stream waits for the event after j's chunk c;
+    ("copy", k, c)        the left neighbour's halo slot c into k's (peer);
+    ("fill", k, c)        k's chunk c (reads the left halo slot c - 1,
+                          writes its own slot c);
+    ("record", k, c)      the event after k's chunk c;
+    ("join", k)           the caller's streams wait for k's last event.
+    `peer`: the shards that sit on another device than their left
+    neighbour. Run in this order on one stream, or on the CPU, the work
+    is also in order."""
+    ops = []
+    keys = [(g, s) for g in range(gap_n) for s in range(lane_n)]
+    ops += [("start", k) for k in keys]
+    for c in range(chunks):
+        for g, s in keys:
+            k = (g, s)
+            if s and c:
+                ops.append(("wait", k, (g, s - 1), c - 1))
+                if k in peer:
+                    ops.append(("copy", k, c - 1))
+            ops.append(("fill", k, c))
+            if (s + 1 < lane_n and c + 1 < chunks) or c + 1 == chunks:
+                ops.append(("record", k, c))
+    ops += [("join", k) for k in keys]
+    return ops
+
+
 def fill_shards(a, b, V1, V2, params, mesh, num_diags: int,
                 lane_is_i: bool, swap_pref: bool, emit_bp: bool,
                 chunk=None) -> list:
     """Fill every shard: a (B, W), b (B, Lb), V1, V2 (B,) int32 numpy; B
     split over the gap rows of `mesh`, W over each row's lane shards.
     Returns per gap row the list of its shards' tensors ("score", "bp") on
-    their devices, the launches queued. `chunk` fills one chunk (default
-    ops/sharded_gotoh_cuda.py::chunk_fill, which routes by device)."""
-    chunk = chunk or sharded_gotoh_cuda.chunk_fill
+    their devices, the work queued and the callers' current streams
+    waiting for it. By default the schedule runs through
+    ops/sharded_gotoh_cuda.py::run_schedule (the kernel on cards, the
+    plain version on the CPU); a `chunk` (such as the plain
+    ops/sharded_gotoh.py::chunk_fill_plain, on any device) fills every
+    chunk in the schedule's serial order instead."""
     gap_n, lane_n = len(mesh), len(mesh[0])
     B, W = a.shape
     if B % gap_n:
@@ -91,6 +130,7 @@ def fill_shards(a, b, V1, V2, params, mesh, num_diags: int,
         raise ValueError(f"{W} lanes do not split over {lane_n} shards")
     Bl, Wl = B // gap_n, W // lane_n
     H = min(HALO, Wl)
+    blocks = block_count(Wl, H, BLOCK_LANES)
     chunks = -(-num_diags // H)
     rows = []
     for g, row in enumerate(mesh):
@@ -100,9 +140,10 @@ def fill_shards(a, b, V1, V2, params, mesh, num_diags: int,
             def put(x, dev=dev):
                 return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             sh = {
+                "L0": s * Wl,
                 "a": put(a[rs]), "b": put(b[rs]),
                 "V1": put(V1[rs]), "V2": put(V2[rs]),
-                "state": torch.full((Bl, PLANES, H + Wl), MININF,
+                "state": torch.full((2, Bl, HALO_Q, Wl), MININF,
                                     dtype=torch.int32, device=dev),
                 "score": torch.full((Bl,), MININF, dtype=torch.int32,
                                     device=dev),
@@ -117,25 +158,17 @@ def fill_shards(a, b, V1, V2, params, mesh, num_diags: int,
                 sh["in"] = torch.empty((chunks, Bl, HALO_Q, H),
                                        dtype=torch.int32, device=dev)
             shards.append(sh)
-        for c in range(chunks):
-            d0 = c * H
-            nd = min(H, num_diags - d0)
-            for s, sh in enumerate(shards):
-                halo_in = None
-                if s and c:
-                    left = shards[s - 1]["out"][c - 1]
-                    if "in" in sh:
-                        sh["in"][c - 1].copy_(left)
-                        sharded_gotoh_cuda.HALO_COPIES += 1
-                        halo_in = sh["in"][c - 1]
-                    else:
-                        halo_in = left
-                chunk(sh["a"], sh["b"], sh["V1"], sh["V2"], params,
-                      sh["state"], halo_in,
-                      None if sh["out"] is None else sh["out"][c],
-                      sh["bp"], sh["score"], L0=s * Wl, Wl=Wl, H=H, d0=d0,
-                      nd=nd, lane_is_i=lane_is_i, swap_pref=swap_pref)
         rows.append(shards)
+    shards = {(g, s): rows[g][s] for g in range(gap_n)
+              for s in range(lane_n)}
+    ops = chunk_schedule(gap_n, lane_n, chunks,
+                         {k for k, sh in shards.items() if "in" in sh})
+    kw = dict(Wl=Wl, H=H, blocks=blocks, num_diags=num_diags,
+              lane_is_i=lane_is_i, swap_pref=swap_pref)
+    if chunk is None:
+        sharded_gotoh_cuda.run_schedule(ops, shards, params, **kw)
+    else:
+        run_schedule_plain(ops, shards, params, chunk=chunk, **kw)
     return rows
 
 

@@ -37,9 +37,12 @@ single-device fill. It engages only over the devices that
 CENTROLIGN_TORCH_SHARD_DEVICES lists (e.g. "cuda:0,cuda:1",
 "cuda:0,cuda:0" or "cpu,cpu,cpu,cpu"; repeats allowed), never by itself:
 the JAX package's tier takes every device of a multi-device host, but on
-an H100 the sharded fill of a gap in the tier's band is slower than the
-single-card fill (PERF.md), and such a gap fits on one card. Its gaps are
-recorded as 'posh'.
+an H100 the sharded fill of pair.fasta's 4356 x 3330 gap over two shards
+of the card takes 5.0 ms against 3.2 ms for the single-card fill, and
+its backpointers' gather and host traceback most of the tier's 31.6 ms
+(PERF.md, H100 80GB HBM3 at 700 W), and every gap of the tier's band
+fits on one card: whether the tier engages by itself is the benchmark's
+decision. Its gaps are recorded as 'posh'.
 
 Copy of centrolign_tpu/stitcher.py with the device tiers on the port's
 kernels; the device probe gate is not carried over.

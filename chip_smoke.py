@@ -39,9 +39,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3e. the lane-sharded Gotoh (L5) against its plain version with 1, 2, 3 and
    4 shards on the card (and across the cards when there are two or more)
    on a bag (npw 1-3, both lane orientations, swap_pref both, empty and
-   tiny gaps) and a related 4,500 x 4,500 pair: bit-equal scores and
-   backpointers, alignments and scores equal to the single-problem entry;
-   time, launches, halo copies and bound;
+   tiny gaps, the chunk's edges) and a related 4,500 x 4,500 pair:
+   bit-equal scores and backpointers, alignments and scores equal to the
+   single-problem entry; time, time a diagonal, launches, halo copies,
+   event waits between the shards' streams, the host's time to queue a
+   fill, bound, and the ptxas report (registers, spills) of the kernel's
+   variants;
+3f. the lane-sharded Gotoh at a 4356 x 3330 and a 4,500 x 4,500 gap over
+   1, 2 and 4 shards for chunk lengths and block widths (HALO/BLOCK_LANES)
+   64/128, 128/128, 128/256 and 256/512, each bit-equal to the module's:
+   time a fill and a diagonal, launches;
 4. the pairwise path: the port's CLI on benchdata/pair.fasta; the CIGAR
    must equal benchdata/ref_pair.cigar.txt byte for byte, both Gotoh
    kernels must have launched, and the device tier must have taken 28 gaps
@@ -51,7 +58,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    card (CENTROLIGN_TPU_SHARD_MIN_CELLS=14000000): the CIGAR must equal the
    reference, the tier must have taken the 4356 x 3330 gap alone and the
    sharded kernel launched; the kernel is timed there against its plain
-   version;
+   version, and the tier's host time on the gap split into the fill (to
+   the card's end), the gather of scores and backpointers to the host and
+   the host traceback;
 5. the MSA path: the port's CLI on benchdata/five.fasta with five.nwk and
    CENTROLIGN_TORCH_DEVICE_DAG=1; the GFA must equal benchdata/ref_five.gfa
    byte for byte, all four kernels must have launched, the DAG tier must
@@ -138,7 +147,8 @@ KERNELS = {
 }
 SOURCES = ["gotoh", "popoa_dag", "chain_cdq", "chain_scan", "sharded_gotoh"]
 # pair.fasta through the sequence-parallel tier: with the threshold at
-# 14,000,000 cells only the 4356 x 3330 gap (14,520,000 cells) takes it
+# 14,000,000 cells only the 4356 x 3330 gap (4357 x 3331 = 14,513,167
+# cells) takes it
 SHARD_MIN_CELLS = "14000000"
 PAIR_SHARD_GAPS = 1
 PAIR_GAPS, PAIR_CELLS = 28, 24_191_366
@@ -1065,9 +1075,11 @@ def compare_sharded(s1, s2, params, devices, swap, reps, plain):
     fill's result does not depend on how the lanes are cut
     (tests/test_torch_sharded_gotoh.py), so it runs once per gap and lane
     width, on one shard, and `plain` keeps it for the other shard counts.
-    Returns (max_abs_err, kernel ms, plain ms, launches, halo copies) of
-    one fill (CUDA events around the queued launches; the gather to the
-    host is outside the time)."""
+    Returns (max_abs_err, kernel ms, plain ms, counts, host ms) of one
+    fill (CUDA events around the queued work, the inputs' copy to the card
+    included; the gather to the host is outside the time): counts are the
+    fill's launches, halo copies and event waits, host ms the host's time
+    to queue it."""
     import torch
     from centrolign_tpu_torch.ops import sharded_gotoh_cuda as shg
     from centrolign_tpu_torch.ops.sharded_gotoh import chunk_fill_plain
@@ -1076,9 +1088,12 @@ def compare_sharded(s1, s2, params, devices, swap, reps, plain):
         s1, s2, params, len(devices), swap)
     args = (a, b, V1, V2, p, [list(devices)], nd, lane_is_i, swap, True)
     shg.reset_counters()
-    sh.fill_shards(*args)
     torch.cuda.synchronize()
-    launches, copies = shg.LAUNCHES, shg.HALO_COPIES
+    t0 = time.perf_counter()
+    sh.fill_shards(*args)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    got_counts = (shg.LAUNCHES, shg.HALO_COPIES, shg.EVENT_WAITS)
     rows, ms = timed(lambda: sh.fill_shards(*args), reps)
     got = sh.gather(rows)
     key = (id(s1), id(s2), p.num_pw, swap, a.shape[1])
@@ -1092,7 +1107,45 @@ def compare_sharded(s1, s2, params, devices, swap, reps, plain):
                    torch.from_numpy(got[1].view("int16"))],
                   [torch.from_numpy(want[0]),
                    torch.from_numpy(want[1].view("int16"))])
-    return err, ms, pms, launches, copies
+    return err, ms, pms, got_counts, host_ms
+
+
+def ptxas_report(name):
+    """Per kernel variant of csrc/<name>.cu built in this process:
+    (template arguments, registers, spill store bytes, spill load bytes),
+    from nvcc's -Xptxas -v output."""
+    import re
+    from centrolign_tpu_torch.ops import _build
+    out, entry, spill = [], None, (0, 0)
+    for line in _build.build_info.get(name, (0.0, ""))[1].splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"I((?:L[ib]\d+E)+)E", m.group(1))
+            entry = (",".join(re.findall(r"L[ib](\d+)E", t.group(1)))
+                     if t else m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append((entry, int(m.group(1)), *spill))
+            entry, spill = None, (0, 0)
+    return out
+
+
+def shard_ptxas_line():
+    """The sharded fill's variants (R, npw, A first) with their registers
+    and spills, one line."""
+    rep = ptxas_report("sharded_gotoh")
+    if not rep:
+        return "ptxas report not captured (library built before this run)"
+    items = ", ".join(f"({e}) {r} regs" + (f" spills {ss}/{sl} B" if ss or sl
+                                            else "")
+                      for e, r, ss, sl in sorted(rep))
+    spills = sum(ss + sl for _, _, ss, sl in rep)
+    return (f"ptxas sharded_gotoh_chunk_kernel<R, npw, A first>: {items}; "
+            f"{len(rep)} variants, {spills} B of spills in all")
 
 
 def shard_bag(rng, params, device, card, errs):
@@ -1132,14 +1185,14 @@ def shard_bag(rng, params, device, card, errs):
         n = len(devices)
         across = len(set(devices)) > 1
         where = f"{n} cards" if across else f"{n} shards on one card"
-        tot = [0.0, 0.0, 0, 0]
+        tot = [0.0, 0.0, 0, 0, 0]
         work = Work()
         for s1, s2, p, swap in bag:
-            err, ms, pms, launches, copies = compare_sharded(
+            err, ms, pms, (launches, copies, waits), _ = compare_sharded(
                 s1, s2, p, devices, swap, 2, plain)
             errs["sharded_gotoh_fill"] = max(errs["sharded_gotoh_fill"], err)
             tot = [tot[0] + ms, tot[1] + pms, tot[2] + launches,
-                   tot[3] + copies]
+                   tot[3] + copies, tot[4] + waits]
             shard_work(s1, s2, p, n, work)
             aln, score = sh.sharded_gotoh_align(s1, s2, p, devices,
                                                 swap_pref=swap)
@@ -1151,12 +1204,13 @@ def shard_bag(rng, params, device, card, errs):
         print(f"sharded_gotoh_fill bag of {len(bag)} gaps, {where}: "
               f"bit-equal to the plain version, alignments equal to "
               f"gotoh_align_device; kernel {tot[0]:.3f} ms, {tot[2]} "
-              f"launches, {tot[3]} halo copies; plain {tot[1]:.1f} ms (one "
+              f"launches, {tot[3]} halo copies, {tot[4]} event waits; plain "
+              f"{tot[1]:.1f} ms (one "
               f"shard, once per gap and width); bound "
               f"{work.bound()[0]:.6f} ms ({card})", flush=True)
         s1, s2, p, swap = big
-        err, ms, pms, launches, copies = compare_sharded(s1, s2, p, devices,
-                                                         swap, 2, plain)
+        err, ms, pms, (launches, copies, waits), host = compare_sharded(
+            s1, s2, p, devices, swap, 2, plain)
         errs["sharded_gotoh_fill"] = max(errs["sharded_gotoh_fill"], err)
         aln, score = sh.sharded_gotoh_align(s1, s2, p, devices)
         want, want_score = gc.gotoh_align_device(s1, s2, p, swap,
@@ -1170,8 +1224,59 @@ def shard_bag(rng, params, device, card, errs):
               f"bit-equal, alignment and score {score} equal to "
               f"gotoh_align_device; kernel {ms:.3f} ms over {launches} "
               f"launches ({ms / (len(s1) + len(s2) + 1) * 1e3:.3f} us a "
-              f"diagonal), {copies} halo copies; plain {pms:.1f} ms (one "
-              f"shard); bound {work.bound()[0]:.6f} ms ({card})", flush=True)
+              f"diagonal), {copies} halo copies, {waits} event waits, "
+              f"{host:.3f} ms to queue; plain {pms:.1f} ms (one shard); bound "
+              f"{work.bound()[0]:.6f} ms ({card})", flush=True)
+    print(shard_ptxas_line(), flush=True)
+
+
+def shard_sweep(rng, params, device, card):
+    """Phase 3f: the sharded fill at a 4356 x 3330 and a 4,500 x 4,500 gap
+    over 1, 2 and 4 shards of the card, for a few chunk lengths and block
+    widths (parallel/sharded_gotoh.py's HALO and BLOCK_LANES, the module's
+    marked), each bit-equal to the fill at the module's: the time a fill
+    and a diagonal, where the choice of the two constants comes from."""
+    import numpy as np
+    import torch
+    from centrolign_tpu_torch.ops import sharded_gotoh_cuda as shg
+    from centrolign_tpu_torch.parallel import sharded_gotoh as sh
+    gaps = []
+    for n1, n2 in ((4356, 3330), (4500, 4500)):
+        s1 = rng.integers(0, 4, n1).astype(np.int32)
+        s2 = np.resize(s1, n2).astype(np.int32)
+        s2[rng.integers(0, n2, n2 // 10)] = rng.integers(0, 4)
+        gaps.append((s1, s2))
+    chosen = (sh.HALO, sh.BLOCK_LANES)
+    try:
+        for s1, s2 in gaps:
+            for shards in (1, 2, 4):
+                a, b, V1, V2, p, nd, lii, swap = shard_inputs(
+                    s1, s2, params, shards, False)
+                args = (a, b, V1, V2, p, [[device] * shards], nd, lii, swap,
+                        True)
+                sh.HALO, sh.BLOCK_LANES = chosen
+                want = sh.gather(sh.fill_shards(*args))
+                line = []
+                for halo, lanes in ((64, 128), (128, 128), (128, 256),
+                                    (256, 512)):
+                    sh.HALO, sh.BLOCK_LANES = halo, lanes
+                    shg.reset_counters()
+                    rows, ms = timed(lambda: sh.fill_shards(*args), 3)
+                    got = sh.gather(rows)
+                    require(np.array_equal(got[0], want[0]) and
+                            np.array_equal(got[1], want[1]),
+                            f"the sharded fill at HALO {halo}, BLOCK_LANES "
+                            f"{lanes} differs from the module's")
+                    mark = "*" if (halo, lanes) == chosen else ""
+                    line.append(f"{halo}/{lanes}{mark} {ms:.3f} ms "
+                                f"({ms / nd * 1e3:.3f} us a diagonal, "
+                                f"{shg.LAUNCHES // 4} launches)")
+                print(f"sharded_gotoh_fill {len(s1)} x {len(s2)}, {shards} "
+                      f"shards on the card, by HALO/BLOCK_LANES: "
+                      + "; ".join(line) + f" ({card})", flush=True)
+    finally:
+        sh.HALO, sh.BLOCK_LANES = chosen
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -1225,8 +1330,13 @@ def run_shard_tier(device, card, table, errs):
           flush=True)
     row = table["sharded_gotoh_fill"]
     for s1, s2, p, mesh, swap in calls:
-        err, ms, pms, launches, copies = compare_sharded(s1, s2, p, mesh,
-                                                         swap, 3, {})
+        fill_ms, gather_ms, tb_ms = posh_split(s1, s2, p, mesh, swap)
+        print(f"posh on pair.fasta's {len(s1)} x {len(s2)} gap, split: fill "
+              f"{fill_ms:.3f} ms (queued and run to its end), gather "
+              f"{gather_ms:.3f} ms (scores and backpointers to the host), "
+              f"host traceback {tb_ms:.3f} ms ({card})", flush=True)
+        err, ms, pms, (launches, copies, waits), host = compare_sharded(
+            s1, s2, p, mesh, swap, 3, {})
         errs["sharded_gotoh_fill"] = max(errs["sharded_gotoh_fill"], err)
         shard_work(s1, s2, p, len(mesh), row["work"])
         row["ms"] += ms
@@ -1235,9 +1345,31 @@ def run_shard_tier(device, card, table, errs):
               f"gap, {len(mesh)} shards on the card: bit-equal; kernel "
               f"{ms:.3f} ms over {launches} launches "
               f"({ms / (len(s1) + len(s2) + 1) * 1e3:.3f} us a diagonal), "
-              f"{copies} halo copies; plain {pms:.1f} ms (one shard); bound "
+              f"{copies} halo copies, {waits} event waits, {host:.3f} ms to "
+              f"queue; plain {pms:.1f} ms (one shard); bound "
               f"{row['work'].bound()[0]:.6f} ms ({card})", flush=True)
+    print(shard_ptxas_line(), flush=True)
     return got
+
+
+def posh_split(s1, s2, params, mesh, swap):
+    """The tier's work on one gap, as sharded_gotoh_align does it, timed
+    in three parts on the host clock: the fill queued and run to its end,
+    the gather to the host, the host traceback (ms each)."""
+    import torch
+    from centrolign_tpu_torch.ops.gotoh import _traceback_bp
+    from centrolign_tpu_torch.parallel import sharded_gotoh as sh
+    a, b, V1, V2, p, nd, lane_is_i, swap = shard_inputs(
+        s1, s2, params, len(mesh), swap)
+    rows, fill_ms = wall_ms(lambda: sh.fill_shards(
+        a, b, V1, V2, p, [list(mesh)], nd, lane_is_i, swap, True))
+    t0 = time.perf_counter()
+    _, bp = sh.gather(rows)
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _traceback_bp(bp[:, 0, :], len(s1), len(s2), lane_is_i, p.num_pw)
+    tb_ms = (time.perf_counter() - t0) * 1e3
+    return fill_ms, gather_ms, tb_ms
 
 
 def run_executors(device, card, serial_wall, serial_gfa):
@@ -1357,7 +1489,8 @@ def counts():
             "cdq_anchors": cc.ANCHORS,
             "scan_anchors": sc.ANCHORS,
             "sharded_gotoh_fill": shg.LAUNCHES,
-            "halo_copies": shg.HALO_COPIES}
+            "halo_copies": shg.HALO_COPIES,
+            "event_waits": shg.EVENT_WAITS}
 
 
 def main() -> int:
@@ -1457,6 +1590,8 @@ def main() -> int:
 
     # 3e. the lane-sharded Gotoh on its bag, 1-4 shards on the card
     shard_bag(rng, params, device, card, errs)
+    # 3f. its chunk length and block width
+    shard_sweep(rng, params, device, card)
 
     # 4. the pairwise path
     dispatched, dag_dispatched = [], []
