@@ -7,8 +7,16 @@ the sources, so an edited source builds anew. One process builds, under a
 file lock, while the others wait for it; each source compiles in its own
 g++ process, all started together.
 
-Copy of centrolign_tpu/native/__init__.py (its sanitizer tier and its
-committed _native.so are not carried over).
+Sanitizer tier (the reference's -DDEV=ON ASan+UBSan build, reference
+CMakeLists.txt:19-25): with CENTROLIGN_TPU_NATIVE_SANITIZE=1, read when the
+library is first loaded, every source builds with `_SAN_FLAGS` into a
+library of its own, `libnative_san-<hash>.so`. It loads only into a process
+that has the sanitizer runtimes preloaded (`PRELOAD`); without them loading
+raises, and a failed sanitized build raises: neither falls back to the plain
+library. tests/test_torch_sanitizer_tier.py drives it.
+
+Copy of centrolign_tpu/native/__init__.py (its committed _native.so is not
+carried over).
 """
 
 from __future__ import annotations
@@ -25,6 +33,12 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _SOURCES = ["chain.cpp", "chain_general.cpp", "chain_affine_cdq.cpp", "esa.cpp", "popoa.cpp", "extract.cpp", "wfa.cpp", "chain_parity.cpp", "superbubbles.cpp", "three_ecc.cpp", "cactus_snarls.cpp", "fill_in.cpp", "chain_levels.cpp"]
 _FLAGS = ["-O3", "-std=c++17", "-fPIC"]
+SANITIZE_ENV = "CENTROLIGN_TPU_NATIVE_SANITIZE"
+_SAN_FLAGS = ["-O1", "-g", "-fsanitize=address,undefined",
+              "-fno-sanitize-recover=all", "-std=c++17", "-fPIC"]
+_SAN_LINK = ["-fsanitize=address,undefined"]
+PRELOAD = ("LD_PRELOAD=$(g++ -print-file-name=libasan.so):"
+           "$(g++ -print-file-name=libubsan.so)")
 
 _lib = None
 
@@ -47,11 +61,18 @@ def _source_hash() -> str:
     return h.hexdigest()
 
 
-def _compile(so: str, openmp: bool) -> bool:
+def sanitizing() -> bool:
+    """Whether CENTROLIGN_TPU_NATIVE_SANITIZE=1 asks for the sanitizer
+    tier."""
+    return os.environ.get(SANITIZE_ENV, "0") == "1"
+
+
+def _compile(so: str, openmp: bool, sanitize: bool) -> bool:
     """Compile every source into an object in parallel, then link `so`."""
     omp = ["-fopenmp"] if openmp else []
+    flags, link = (_SAN_FLAGS, _SAN_LINK) if sanitize else (_FLAGS, [])
     objs = [f"{so}.{os.getpid()}.{s}.o" for s in _SOURCES]
-    procs = [subprocess.Popen(["g++", *_FLAGS, *omp, "-c", "-o", o,
+    procs = [subprocess.Popen(["g++", *flags, *omp, "-c", "-o", o,
                                os.path.join(_DIR, s)],
                               stdout=subprocess.DEVNULL,
                               stderr=subprocess.DEVNULL)
@@ -59,8 +80,8 @@ def _compile(so: str, openmp: bool) -> bool:
     ok = all(p.wait() == 0 for p in procs)
     tmp = f"{so}.{os.getpid()}.tmp"
     if ok:
-        ok = subprocess.run(["g++", "-shared", *omp, "-o", tmp, *objs],
-                            capture_output=True).returncode == 0
+        ok = subprocess.run(["g++", "-shared", *link, *omp, "-o", tmp,
+                             *objs], capture_output=True).returncode == 0
     for o in objs:
         if os.path.exists(o):
             os.remove(o)
@@ -69,32 +90,71 @@ def _compile(so: str, openmp: bool) -> bool:
     return ok
 
 
-def _build(so: str) -> None:
-    if not _compile(so, openmp=True):
+def _build(so: str, sanitize: bool) -> None:
+    if not _compile(so, openmp=True, sanitize=sanitize):
         # toolchains without libgomp
-        if not _compile(so, openmp=False):
+        if not _compile(so, openmp=False, sanitize=sanitize):
             raise RuntimeError(f"g++ failed to build {so} from {_DIR}")
 
 
-def _built_library() -> str:
-    """The path of the shared object for the current sources, built first
-    (by this process or another one) if it does not exist yet."""
-    so = os.path.join(_BUILD_DIR, f"libnative-{_source_hash()[:16]}.so")
+def _built_library(sanitize: bool) -> str:
+    """The path of the shared object for the current sources (the
+    sanitized one with `sanitize`), built first (by this process or
+    another one) if it does not exist yet."""
+    name = "libnative_san" if sanitize else "libnative"
+    so = os.path.join(_BUILD_DIR, f"{name}-{_source_hash()[:16]}.so")
     if os.path.exists(so):
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with open(os.path.join(_BUILD_DIR, "native.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(so):
-            _build(so)
+            _build(so, sanitize)
     return so
+
+
+def sanitizer_runtimes_loaded() -> bool:
+    """Whether ASan's and UBSan's runtimes are in this process's global
+    symbols, as LD_PRELOAD puts them. Loading a sanitized library without
+    them ends the process in the runtime's own check, so test first."""
+    return all(hasattr(ctypes.pythonapi, sym) for sym in (
+        "__asan_init", "__ubsan_handle_add_overflow_abort"))
+
+
+def sanitizer_preload() -> str:
+    """The LD_PRELOAD value that `PRELOAD` spells: ASan's and UBSan's
+    runtimes as g++ resolves them. Raises if the toolchain lacks either."""
+    paths = []
+    for name in ("libasan.so", "libubsan.so"):
+        path = subprocess.run(["g++", f"-print-file-name={name}"],
+                              capture_output=True, text=True,
+                              check=True).stdout.strip()
+        if not os.path.isabs(path) or not os.path.exists(path):
+            raise RuntimeError(
+                f"g++ has no {name}: the sanitizer tier cannot run")
+        paths.append(path)
+    return ":".join(paths)
+
+
+def open_library(path: str, sanitize: bool) -> ctypes.CDLL:
+    """ctypes.CDLL(path), for a sanitized library only after checking that
+    the sanitizer runtimes are preloaded."""
+    if sanitize and not sanitizer_runtimes_loaded():
+        raise RuntimeError(
+            f"{SANITIZE_ENV}=1: {os.path.basename(path)} is built with ASan "
+            f"and UBSan and loads only into a process with their runtimes "
+            f"preloaded; run it with {PRELOAD} and "
+            f"ASAN_OPTIONS=detect_leaks=0 (on a card also "
+            f"protect_shadow_gap=0)")
+    return ctypes.CDLL(path)
 
 
 def get_lib() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(_built_library())
+    sanitize = sanitizing()
+    lib = open_library(_built_library(sanitize), sanitize)
     lib.chain_dp_seq.restype = ctypes.c_int64
     lib.chain_dp_seq.argtypes = [
         ctypes.c_int64,

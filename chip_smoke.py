@@ -106,12 +106,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 10. five.fasta with CENTROLIGN_TPU_EXECUTOR=jaxdist --hosts 2 (two
    torch.distributed ranks on gloo, one card): the same GFA gate, each
    rank on the card, their launches; wall;
+11. the sanitizer tier: the sanitized builds (CENTROLIGN_TPU_NATIVE_SANITIZE=1:
+   g++ over the native sources, nvcc with each csrc/*.cu's host side under
+   ASan and UBSan), started in phase 2 beside its nvcc and waited for
+   before phase 3, with their seconds, and the ptxas reports kept beside
+   each library equal to the plain build's for all five sources; then a child
+   process with the sanitizer runtimes preloaded (ASAN_OPTIONS below) runs
+   pair.fasta with device chaining and through two shards of the card and
+   three DAG jobs against the sanitized native popoa: no ASan or UBSan
+   report, exit 0, both CIGARs the reference's, all five CUDA libraries
+   launched (their host launchers run under the sanitizers); its wall;
+12. poisoned memory: one small launch of each kernel family (the Gotoh
+   fill and traceback with a job split over a cluster, the single-problem
+   entry, the DAG fill and traceback with a job in global scratch, L3, L4,
+   L5 over 2 shards), run twice, each time after every free block of the
+   caching allocator (both pools) was overwritten, with 0xA5 and then
+   0x5A: every output bit-equal to the plain version's, and no new
+   segment allocated in either run, so every tensor a launch was handed
+   came from poisoned memory; a kernel that read memory nobody wrote
+   would differ;
 and at the end neither jax nor any module of the JAX package may be in the
 process, nor in any worker or rank. Each path runs with the launch counters set to 0 just before it
 and read just after. The last three lines of standard output are the
 kernel table, the card's name and power limit, and {"ok": true, ...}.
 """
 
+import atexit
 import contextlib
 import io
 import json
@@ -164,6 +184,11 @@ PAIR_SCAN_ANCHORS = (24_025, 22_506, 145_331)
 # clock; the tensor cores' int8 rate does not apply to these kernels)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# ASan's options for the sanitizer tier on the card: CPython's allocations
+# are not the tier's concern (detect_leaks=0), and the CUDA driver maps
+# memory inside the shadow gap that ASan otherwise protects
+# (protect_shadow_gap=0)
+ASAN_OPTIONS = "detect_leaks=0:protect_shadow_gap=0"
 
 
 def require(cond, msg):
@@ -1111,13 +1136,13 @@ def compare_sharded(s1, s2, params, devices, swap, reps, plain):
 
 
 def ptxas_report(name):
-    """Per kernel variant of csrc/<name>.cu built in this process:
+    """Per kernel variant of csrc/<name>.cu as built:
     (template arguments, registers, spill store bytes, spill load bytes),
     from nvcc's -Xptxas -v output."""
     import re
     from centrolign_tpu_torch.ops import _build
     out, entry, spill = [], None, (0, 0)
-    for line in _build.build_info.get(name, (0.0, ""))[1].splitlines():
+    for line in _build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"I((?:L[ib]\d+E)+)E", m.group(1))
@@ -1139,7 +1164,7 @@ def shard_ptxas_line():
     and spills, one line."""
     rep = ptxas_report("sharded_gotoh")
     if not rep:
-        return "ptxas report not captured (library built before this run)"
+        return "no ptxas report for sharded_gotoh"
     items = ", ".join(f"({e}) {r} regs" + (f" spills {ss}/{sl} B" if ss or sl
                                             else "")
                       for e, r, ss, sl in sorted(rep))
@@ -1446,6 +1471,394 @@ def run_executors(device, card, serial_wall, serial_gfa):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the sanitizer tier (phase 11) and poisoned memory (phase 12)
+
+
+def ptxas_lines(log):
+    """nvcc's ptxas report of a build (entries, registers, barriers, stack,
+    spills, shared memory), one normalized line each; its compile times
+    left out."""
+    return [" ".join(line.split()) for line in log.splitlines()
+            if ("ptxas" in line or "stack frame" in line)
+            and "Compile time" not in line]
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_sanitized_build():
+    """Start the sanitized builds (g++ over native/, nvcc's host sides of
+    csrc/) in a child process beside phase 2's nvcc, which waits for it.
+    The child is stopped when this process exits, whatever the cause."""
+    from centrolign_tpu_torch import native
+    env = dict(os.environ, **{native.SANITIZE_ENV: "1"})
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--build-sanitized"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=HERE)
+    atexit.register(_stop, proc)
+    return proc
+
+
+def build_sanitized() -> int:
+    """--build-sanitized: both sanitized builds at once (the switch set by
+    the parent); prints their seconds as one JSON line."""
+    import threading
+    sys.path.insert(0, HERE)
+    from centrolign_tpu_torch import native
+    from centrolign_tpu_torch.ops import _build
+    require(native.sanitizing(), f"{native.SANITIZE_ENV} is not set")
+    t0 = time.perf_counter()
+    done = {}
+
+    def gxx():
+        native._built_library(True)
+        done["native_s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=gxx)
+    th.start()
+    _build.build_libraries(SOURCES)
+    nvcc_s = time.perf_counter() - t0
+    th.join()
+    require("native_s" in done, "the sanitized g++ build failed")
+    print(json.dumps({"native_s": done["native_s"], "nvcc_s": nvcc_s}))
+    return 0
+
+
+def sanitized_child() -> int:
+    """--sanitized-child (phase 11's child, run under ASan and UBSan):
+    pair.fasta with both device-chaining switches, pair.fasta through the
+    sequence-parallel tier on two shards of the card, and a few DAG jobs
+    through ops/popoa_dag_cuda.py held against the sanitized native
+    popoa.cpp. Prints one JSON line: the CIGARs' equality with the
+    reference, the walls, the launch counters, the libraries loaded and
+    the foreign modules."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    from centrolign_tpu_torch import native
+    from centrolign_tpu_torch.ops import _build
+    from centrolign_tpu_torch.ops import popoa_dag as torch_dag
+    from centrolign_tpu_torch.ops.align_params import AlignmentParams
+    from centrolign_tpu_torch.parallel import counters as pcounters
+
+    require(torch.cuda.is_available(), "no card in the sanitized child")
+    require(native.sanitizing() and native.sanitizer_runtimes_loaded(),
+            "the sanitized child runs without the switch or the preload")
+    device = torch.device("cuda", 0)
+    os.environ["CENTROLIGN_TORCH_DEVICE"] = "cuda"
+    with open(REF_CIGAR) as f:
+        ref = f.read()
+    reset_counts()
+    cigars, walls = [], []
+    for extra in (CHAINING, {"CENTROLIGN_TPU_SHARD_MIN_CELLS": SHARD_MIN_CELLS,
+                             "CENTROLIGN_TORCH_SHARD_DEVICES":
+                             f"{device},{device}"}):
+        os.environ.update(extra)
+        rc, out, wall = run_cli(["-v", "0", PAIR])
+        for k in extra:
+            os.environ.pop(k)
+        require(rc == 0, f"cli.main returned {rc} on pair.fasta")
+        cigars.append(out == ref)
+        walls.append(wall)
+
+    params = AlignmentParams(20, 80, (60, 800, 2500), (30, 5, 1))
+    rng = np.random.default_rng(20261017)
+    jobs, pairs = [], []
+    for V, K, S, npw in ((300, 4, 32, 3), (200, 2, 8, 2), (120, 1, 1, 1)):
+        p = params.truncated(npw)
+        while True:
+            lab1 = rng.integers(0, 4, V)
+            lab2 = lab1.copy()
+            flip = rng.random(V) < 0.05
+            lab2[flip] = (lab2[flip] + 1) % 4
+            g1 = dag_graph(rng, V, K, S, labels=lab1)
+            g2 = dag_graph(rng, V, K, S, labels=lab2)
+            job = dag_job(g1, g2, p)
+            if job is not None:
+                break
+        jobs.append(job)
+        pairs.append((g1, g2, p))
+    t0 = time.perf_counter()
+    got = torch_dag.popoa_dag_batch(jobs, device)
+    walls.append(time.perf_counter() - t0)
+    for (aln, score), (g1, g2, p) in zip(got, pairs):
+        ends = [np.flatnonzero(g.in_degrees() == 0) for g in (g1, g2)]
+        ends += [np.flatnonzero(g.out_degrees() == 0) for g in (g1, g2)]
+        want, want_score = native.popoa_align(g1, g2, *ends, p)
+        require(score == want_score and np.array_equal(aln, want),
+                f"a DAG job of {g1.node_size} x {g2.node_size} differs from "
+                f"native popoa")
+    foreign = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "centrolign_tpu"
+                     or m.startswith("centrolign_tpu."))
+    print(json.dumps({
+        "cigars": cigars, "walls": walls, "dag_jobs": len(jobs),
+        "launches": counts(),
+        "libraries": [os.path.basename(native._lib._name)] + sorted(
+            os.path.basename(lib._name) for lib in _build._libs.values()),
+        "foreign": foreign + sorted(pcounters.FOREIGN)}))
+    return 0
+
+
+def finish_sanitized_build(build_proc):
+    """Wait for start_sanitized_build's child (at the end of phase 2,
+    before anything is timed) and return its seconds."""
+    out, err = build_proc.communicate(timeout=900)
+    require(build_proc.returncode == 0,
+            f"the sanitized build failed:\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def run_sanitizer_tier(built, card):
+    """Phase 11: the sanitized builds' seconds and ptxas reports (equal to
+    the plain build's for every source: the device code is the same), then
+    the sanitized child under LD_PRELOAD and ASAN_OPTIONS: clean, both
+    CIGARs the reference's, every CUDA library launched."""
+    from centrolign_tpu_torch import native
+    from centrolign_tpu_torch.ops import _build
+    for name in SOURCES:
+        plain = ptxas_lines(_build.build_log(name, sanitize=False))
+        san = ptxas_lines(_build.build_log(name, sanitize=True))
+        require(plain and san, f"no ptxas report for the plain or the "
+                f"sanitized build of {name}.cu")
+        require(plain == san, f"the sanitized build of {name}.cu has "
+                f"another ptxas report than the plain build")
+    print(f"sanitized builds, beside phase 2's nvcc: g++ -O1 -g "
+          f"-fsanitize=address,undefined of 13 native sources "
+          f"{built['native_s']:.3f} s; nvcc with the host side under ASan "
+          f"and UBSan of {len(SOURCES)} sources {built['nvcc_s']:.3f} s; "
+          f"ptxas reports identical to the plain build's for all "
+          f"{len(SOURCES)} ({', '.join(SOURCES)}) ({card})", flush=True)
+    env = dict(os.environ, LD_PRELOAD=native.sanitizer_preload(),
+               ASAN_OPTIONS=ASAN_OPTIONS, **{native.SANITIZE_ENV: "1"})
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--sanitized-child"],
+        capture_output=True, text=True, env=env, cwd=HERE, timeout=900)
+    wall = time.perf_counter() - t0
+    for report in ("AddressSanitizer", "runtime error:"):
+        require(report not in r.stderr, f"the sanitized child reported "
+                f"{report!r}:\n{r.stderr[-6000:]}")
+    require(r.returncode == 0, f"the sanitized child exited with "
+            f"{r.returncode}:\n{r.stderr[-4000:]}")
+    rep = json.loads(r.stdout.strip().splitlines()[-1])
+    require(rep["cigars"] == [True, True], f"a sanitized pair.fasta CIGAR "
+            f"differs from the reference (device chaining, sharded tier): "
+            f"{rep['cigars']}")
+    missing = [k for k in KERNELS if k != "gotoh_align_single"
+               and rep["launches"][k] == 0]
+    require(not missing, f"the sanitized child did not launch {missing}")
+    libs = rep["libraries"]
+    require(len(libs) == 1 + len(SOURCES) and all("_san-" in x for x in libs),
+            f"the sanitized child loaded {libs}")
+    require(not rep["foreign"], f"the sanitized child imported "
+            f"{rep['foreign'][:5]}")
+    print(f"sanitizer tier on the card (LD_PRELOAD libasan + libubsan, "
+          f"ASAN_OPTIONS={ASAN_OPTIONS}): child wall {wall:.3f} s, no report; "
+          f"pair.fasta with device chaining {rep['walls'][0]:.3f} s and "
+          f"through 2 shards {rep['walls'][1]:.3f} s, CIGARs byte-identical "
+          f"to the reference; {rep['dag_jobs']} DAG jobs equal to sanitized "
+          f"native popoa in {rep['walls'][2]:.3f} s; libraries "
+          f"{', '.join(libs)}; launches {json.dumps(rep['launches'])} "
+          f"({card})", flush=True)
+    return wall
+
+
+def poison_free(device, byte):
+    """Write `byte` over every free block that the caching allocator holds
+    on `device`, in both its pools, with the driver's cuMemsetD8 (free
+    blocks only: no tensor is touched, nothing is allocated). Returns the
+    bytes written per pool."""
+    import ctypes
+    import torch
+    torch.cuda.synchronize(device)
+    memset = ctypes.CDLL("libcuda.so.1").cuMemsetD8_v2
+    memset.argtypes = [ctypes.c_uint64, ctypes.c_ubyte, ctypes.c_size_t]
+    memset.restype = ctypes.c_int
+    written = {"large": 0, "small": 0}
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != device.index:
+            continue
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            require(blk.get("address", addr) == addr,
+                    "the allocator's snapshot lists a segment's blocks out "
+                    "of order")
+            require(blk["state"] != "active_pending_free",
+                    "a block is waiting on another stream")
+            if blk["state"] == "inactive":
+                err = memset(addr, byte, blk["size"])
+                require(err == 0, f"cuMemsetD8 failed: CUDA error {err}")
+                written[seg["segment_type"]] += blk["size"]
+            addr += blk["size"]
+        require(addr == seg["address"] + seg["total_size"],
+                "a segment's blocks do not cover it")
+    torch.cuda.synchronize(device)
+    st = torch.cuda.memory_stats(device)
+    free = st["reserved_bytes.all.current"] - st["active_bytes.all.current"]
+    require(sum(written.values()) == free, f"poisoned "
+            f"{sum(written.values())} B of the allocator's {free} B free")
+    return written
+
+
+def poisoned_memory(rng, params, device, card):
+    """Phase 12: one small launch of every kernel family, run twice, each
+    time after every free byte of the caching allocator was overwritten
+    with another pattern; every output equal across the runs and to the
+    plain version's, and no run allocating a new segment (so each of its
+    tensors came from poisoned memory). Returns the phase's wall."""
+    import numpy as np
+    import torch
+    from centrolign_tpu_torch.ops import chain_cdq as plain_cdq
+    from centrolign_tpu_torch.ops import chain_cdq_cuda as cc
+    from centrolign_tpu_torch.ops import chain_scan as plain_scan
+    from centrolign_tpu_torch.ops import chain_scan_cuda as sc
+    from centrolign_tpu_torch.ops import gotoh as plain_gotoh
+    from centrolign_tpu_torch.ops import gotoh_cuda as gc
+    from centrolign_tpu_torch.ops import popoa_dag as plain_dag
+    from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+    from centrolign_tpu_torch.ops.sharded_gotoh import chunk_fill_plain
+    from centrolign_tpu_torch.parallel import sharded_gotoh as sh
+
+    t_start = time.perf_counter()
+    # Gotoh (K1-K3, L1): small jobs beside one split over a cluster
+    bag = make_bag(rng, params)
+    gjobs = bag[:3] + [j for j in bag if min(len(j[0]), len(j[1]))
+                       == gc.CLUSTER_MIN_LANES + 1]
+    gtab = gc.params_table(gjobs).to(device)
+    gseq = gc.pack_seqs(gjobs).to(device)
+    bp_size, plan, cap = gc.launch_sizes(gjobs)
+    require(plan.cluster > 1, "the Gotoh jobs of phase 12 have no cluster "
+            "job")
+    # the single-problem entry (K4)
+    s1 = rng.integers(0, 4, 2000).astype(np.int32)
+    s2 = np.resize(s1, 1500).astype(np.int32)
+    s2[rng.integers(0, 1500, 150)] = rng.integers(0, 4)
+    single = (s1, s2, True, params)
+    # the DAG kernels (L2): one job in shared memory, one in global scratch
+    djobs = [related_dag_job(rng, params.truncated(2), 150, 2, 8, 0, 20),
+             related_dag_job(rng, params, 300, 4, 32, 0, 0)]
+    dtab, ddata, dsizes = pdc.dag_launch(djobs, device)
+    dscr, dcap = dsizes[2], dsizes[4]
+    require(dscr > 0, "no DAG job of phase 12 keeps its state in global "
+            "scratch")
+    # L3: a batch of problems (n 0, 8, tie-dense, bent, over a block)
+    probs = [cdq_problem(rng, 0), cdq_problem(rng, 8),
+             cdq_problem(rng, 300, tie_dense=True),
+             cdq_problem(rng, 500, bent=True), cdq_problem(rng, 1100)]
+    _, arrays = plain_cdq.pack(probs, max(len(p[0]) for p in probs))
+    cdq_t = [torch.from_numpy(a).to(device) for a in arrays]
+    anchors = sum(len(p[0]) for p in probs)
+    # L4
+    args = scan_problem(rng, 4096)
+    _, _, ev_np, dp0_np, lv_np = plain_scan.build_events(*args[:6])
+    ev = torch.from_numpy(ev_np).to(device)
+    dp0 = torch.from_numpy(dp0_np).to(device)
+    lv = tuple(torch.from_numpy(a).to(device) for a in lv_np)
+    # L5 over 2 shards of the card
+    a1 = rng.integers(0, 4, 1500).astype(np.int32)
+    a2 = np.resize(a1, 1300).astype(np.int32)
+    a2[rng.integers(0, 1300, 130)] = rng.integers(0, 4)
+    a, b, V1, V2, p5, nd, lii, swap = shard_inputs(
+        a1, a2, params.truncated(2), 2, True)
+
+    def shard_args(devices):
+        return (a, b, V1, V2, p5, [devices], nd, lii, swap, True)
+
+    def run(plain):
+        out = {}
+        if plain:
+            bp, score = plain_gotoh.gotoh_fill_plain(gtab, gseq)
+            rows = plain_gotoh.gotoh_traceback_plain(bp, score, gtab, cap)
+        else:
+            bp, score = gc.gotoh_fill(gtab, gseq, bp_size, plan)
+            rows = gc.gotoh_traceback(bp, score, gtab, cap)
+        out["gotoh_fill bp"] = bp.view(torch.int16)
+        out["gotoh_fill score"], out["gotoh_traceback rows"] = score, rows
+        if plain:
+            tab1 = gc.params_table([single]).to(device)
+            seq1 = gc.pack_seqs([single]).to(device)
+            bp1, sc1 = plain_gotoh.gotoh_fill_plain(tab1, seq1)
+            r = plain_gotoh.gotoh_traceback_plain(
+                bp1, sc1, tab1, len(s1) + len(s2))[0].cpu()
+            aln1, score1 = r[len(r) - int(r[0, 0]):].long(), int(r[0, 1])
+        else:
+            aln1, score1 = gc.gotoh_align_device(s1, s2, params, True,
+                                                 device=device)
+            aln1 = torch.from_numpy(np.asarray(aln1, np.int64))
+        out["gotoh_align_single aln"] = aln1
+        out["gotoh_align_single score"] = torch.tensor([score1])
+        if plain:
+            bp, sm = plain_dag.popoa_dag_fill_plain(dtab, ddata)
+            rows = plain_dag.popoa_dag_traceback_plain(bp, sm, dtab, ddata,
+                                                       dcap)
+        else:
+            bp, sm = pdc.popoa_dag_fill(dtab, ddata, *dsizes[:4],
+                                        dsizes[5])
+            rows = pdc.popoa_dag_traceback(bp, sm, dtab, ddata, dcap)
+        out["popoa_dag_fill bp"], out["popoa_dag_fill sink M"] = bp, sm
+        out["popoa_dag_traceback rows"] = rows
+        got = (plain_cdq.cdq_scan_plain(*cdq_t) if plain
+               else cc.cdq_scan(*cdq_t, anchors=anchors))
+        for name, x in zip(("dp", "bp", "tie", "struct", "stored"), got):
+            out[f"chain_cdq_scan {name}"] = x
+        got = (plain_scan.event_scan_plain(ev, dp0) if plain
+               else sc.event_scan(ev, dp0, lv, anchors=len(args[4])))
+        for name, x in zip(("dp", "winners"), got):
+            out[f"chain_scan_event {name}"] = x
+        if plain:
+            rows5 = sh.fill_shards(*shard_args([device]),
+                                   chunk=chunk_fill_plain)
+        else:
+            rows5 = sh.fill_shards(*shard_args([device, device]))
+        score5, bp5 = sh.gather(rows5)
+        out["sharded_gotoh_fill score"] = torch.from_numpy(score5)
+        out["sharded_gotoh_fill bp"] = torch.from_numpy(bp5.view(np.int16))
+        torch.cuda.synchronize(device)
+        return {k: (x.view(torch.int32) if x.dtype == torch.float32
+                    else x).cpu() for k, x in out.items()}
+
+    def check(got, want, what):
+        require(got.keys() == want.keys(), f"{what}: other outputs")
+        for k in want:
+            require(got[k].shape == want[k].shape
+                    and torch.equal(got[k], want[k]),
+                    f"{k} {what} differs from its plain version: the kernel "
+                    f"read memory it did not write")
+
+    plain = run(plain=True)
+    for _ in range(2):  # the allocator's segments for these launches
+        check(run(plain=False), plain, "unpoisoned")
+    seen = []
+    for byte in (0xA5, 0x5A):
+        written = poison_free(device, byte)
+        seg0 = torch.cuda.memory_stats(device)["segment.all.allocated"]
+        got = run(plain=False)
+        seg1 = torch.cuda.memory_stats(device)["segment.all.allocated"]
+        require(seg1 == seg0, f"the run after poisoning with {byte:#04x} "
+                f"allocated {seg1 - seg0} new segments: not all of its "
+                f"memory was poisoned")
+        check(got, plain, f"after poisoning with {byte:#04x}")
+        seen.append(written)
+    wall = time.perf_counter() - t_start
+    print(f"poisoned memory: {len(plain)} outputs of {len(KERNELS)} kernels "
+          f"(Gotoh fill and traceback with a cluster job, the single-problem "
+          f"entry, the DAG fill and traceback with a job in global scratch, "
+          f"L3, L4, L5 over 2 shards) bit-equal to their plain versions "
+          f"after the allocator's free memory was filled with 0xa5 "
+          f"({seen[0]['large']} B large pool, {seen[0]['small']} B small) "
+          f"and with 0x5a ({seen[1]['large']} B, {seen[1]['small']} B), no "
+          f"new segment in either run; wall {wall:.3f} s ({card})",
+          flush=True)
+    return wall
+
+
 def run_cli(argv):
     """cli.main(argv) with its standard output captured: (rc, output,
     wall seconds)."""
@@ -1526,6 +1939,7 @@ def main() -> int:
     from centrolign_tpu_torch.ops import chain_scan_cuda as sc
     from centrolign_tpu_torch.ops import sharded_gotoh_cuda as shg
     t0 = time.perf_counter()
+    san_build = start_sanitized_build()
     _build.build_libraries(SOURCES)
     for mod in (gc, pdc, cc, sc, shg):
         mod._lib()
@@ -1533,9 +1947,13 @@ def main() -> int:
           f"with nvcc {' '.join(_build.NVCC_FLAGS)} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     for name in SOURCES:
-        for line in _build.build_info.get(name, (0.0, ""))[1].splitlines():
+        for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    san_built = finish_sanitized_build(san_build)
+    print(f"waited {time.perf_counter() - t0:.3f} s for the sanitized "
+          f"builds", flush=True)
 
     params = AlignmentParams(20, 80, (60, 800, 2500), (30, 5, 1))
     rng = np.random.default_rng(20261016)
@@ -1904,6 +2322,14 @@ def main() -> int:
     # ranks on the card, beside the serial run of 5b (the same settings)
     run_executors(device, card, wall_off, out_off)
 
+    # 11. the sanitizer tier on the card: a child under ASan and UBSan
+    # reaches the host launcher of every CUDA library
+    san_wall = run_sanitizer_tier(san_built, card)
+    # 12. every kernel family on memory poisoned with two patterns
+    poison_wall = poisoned_memory(rng, params, device, card)
+    print(f"phase 11 (sanitized child) {san_wall:.3f} s, phase 12 "
+          f"(poisoned memory) {poison_wall:.3f} s ({card})", flush=True)
+
     # the end: no jax, nothing of the JAX package, in this process or in
     # any worker or rank
     from centrolign_tpu_torch.parallel import counters as pcounters
@@ -1941,4 +2367,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    modes = {"--build-sanitized": build_sanitized,
+             "--sanitized-child": sanitized_child}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

@@ -13,7 +13,7 @@ import torch
 
 from centrolign_tpu.ops import gotoh as jax_gotoh
 from centrolign_tpu.ops.align_params import AlignmentParams
-from centrolign_tpu.ops.popoa_ref import popoa
+from centrolign_tpu_torch.ops.popoa_ref import popoa
 from centrolign_tpu_torch.ops import gotoh as torch_gotoh
 from centrolign_tpu_torch.ops.align_params import params_from_arrays
 from centrolign_tpu_torch.ops.gotoh_cuda import (gotoh_align_device,

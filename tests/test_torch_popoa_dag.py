@@ -19,8 +19,9 @@ import torch
 
 from centrolign_tpu.graph import BaseGraph as JaxGraph
 from centrolign_tpu.ops import popoa_dag as jax_dag
+from centrolign_tpu.ops import popoa_ref as jax_ref
 from centrolign_tpu.ops.align_params import AlignmentParams
-from centrolign_tpu.ops.popoa_ref import popoa
+from centrolign_tpu_torch.ops.popoa_ref import popoa
 from centrolign_tpu_torch import metrics
 from centrolign_tpu_torch.extractor import SubGraphInfo
 from centrolign_tpu_torch.graph import BaseGraph
@@ -204,7 +205,8 @@ def _jax_graph(g):
 def test_fan_beyond_envelope_goes_to_host_po(width):
     """In-degree 5 or more is outside the port's envelope (the base-5
     predecessor digits cannot hold slot 5): the port declines the job, and
-    the stitcher's alignment of the gap is then popoa_ref's."""
+    the stitcher's alignment of the gap is then popoa_ref's, the port's
+    copy's and the JAX package's alike."""
     g1, g2 = _fan(width), _fan(width)
     g2.relabel(3, (int(g2.labels[3]) + 1) % 4)
     src, snk = [0], [g1.node_size - 1]
@@ -224,7 +226,10 @@ def test_fan_beyond_envelope_goes_to_host_po(width):
     assert pending.kind == "host"
     assert metrics.counters["po_dagfb"][0] == 1
     aln = pending.finish(pending.job())
-    want, _ = popoa(_jax_graph(g1), _jax_graph(g2), src, src, snk, snk, pj)
+    want, score = popoa(g1, g2, src, src, snk, snk, params)
+    want_j, score_j = jax_ref.popoa(_jax_graph(g1), _jax_graph(g2), src, src,
+                                    snk, snk, pj)
+    assert score == score_j and np.array_equal(want, want_j)
     assert np.array_equal(aln, want)
 
 
