@@ -69,6 +69,11 @@
 
 #include <cuda_runtime.h>
 
+// JITTER(site) marks a hand-off between threads, warps, blocks or
+// launches, which the jitter build delays (jitter.cuh); nothing in the
+// plain build.
+#include "jitter.cuh"
+
 #include <cstdint>
 
 namespace {
@@ -178,8 +183,10 @@ __device__ __forceinline__ void grid_barrier(unsigned long long* bar,
   epoch += gridDim.x;
   __syncthreads();
   if (threadIdx.x == 0) {
+    JITTER(0);
     __threadfence();
     atomicAdd(bar, 1ull);
+    JITTER(1);
     unsigned long long seen;
     do {
       asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
@@ -203,6 +210,7 @@ __device__ __forceinline__ void stage(int4* s_key, float4* s_gt,
     cp_async16(&s_lt[i], &lt[c0 + i]);
   }
   cp_async_wait_all();
+  JITTER(2);
   __syncthreads();
 }
 
@@ -275,6 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int c0 = r0; c0 < r1; c0 += stage_rows) {
             const int c1 = min(r1, c0 + stage_rows);
             if (!once) {
+              JITTER(3);
               __syncthreads();  // the last rows' readers are done
               stage(s_key, s_gt, s_lt, key_b, gt, lt, c0, c1);
             }

@@ -51,6 +51,11 @@
 
 #include <cuda_runtime.h>
 
+// JITTER(site) marks a hand-off between threads, warps, blocks or
+// launches, which the jitter build delays (jitter.cuh); nothing in the
+// plain build.
+#include "jitter.cuh"
+
 #include <cstdint>
 
 namespace {
@@ -96,8 +101,10 @@ __device__ __forceinline__ void grid_barrier(unsigned long long* bar,
   epoch += gridDim.x;
   __syncthreads();
   if (threadIdx.x == 0) {
+    JITTER(0);
     __threadfence();
     atomicAdd(bar, 1ull);
+    JITTER(1);
     unsigned long long seen;
     do {
       asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
@@ -119,6 +126,7 @@ __device__ __forceinline__ void stage(int2* s_row, const int2* row, int c0,
   for (int u = threadIdx.x; u < units; u += kThreads)
     cp_async16(&s_row[2 * u], &row[c0 + 2 * u]);
   cp_async_wait_all();
+  JITTER(2);
   __syncthreads();
 }
 
@@ -176,6 +184,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int c0 = r0; c0 < r1; c0 += stage_rows) {
             const int c1 = min(r1, c0 + stage_rows);
             if (!once) {
+              JITTER(3);
               __syncthreads();  // the last slots' readers are done
               stage(s_row, row, c0, c1);
             }

@@ -90,6 +90,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// JITTER(site) marks a hand-off between threads, warps, blocks or
+// launches, which the jitter build delays (jitter.cuh); nothing in the
+// plain build.
+#include "jitter.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -428,6 +433,7 @@ __device__ void fill_job(const Job& jb, int job, int rank, int G, int nwj,
     }
     // every block of the cluster is running, and its mbarriers are set,
     // before anyone sends to it
+    JITTER(0);
     cg::this_cluster().sync();
   } else {
     __syncthreads();
@@ -495,6 +501,7 @@ __device__ void fill_job(const Job& jb, int job, int rank, int G, int nwj,
       // the entries sent in chunk q - 1; then the same mbarrier counts
       // those of chunk q + 3
       const int i = q - 1 - in_qa;
+      JITTER(1);
       mbar_wait(&full[i % kMbars], (i / kMbars) & 1);
       if (l == 0 && q + kMbars - 1 <= in_qb)
         mbar_expect(&full[i % kMbars],
@@ -503,6 +510,7 @@ __device__ void fill_job(const Job& jb, int job, int rank, int G, int nwj,
     if (G > 1 && send_warp && q >= out_qa + kMbars && q <= out_qb) {
       // the block after has read the entries of chunk q - 4
       const int i = q - kMbars - out_qa;
+      JITTER(2);
       mbar_wait(&empty[i % kMbars], (i / kMbars) & 1);
       if (l == 31 && q <= out_qb - kMbars) mbar_expect(&empty[i % kMbars], 4);
     }
@@ -556,20 +564,27 @@ __device__ void fill_job(const Job& jb, int job, int rank, int G, int nwj,
         if (out_ring != nullptr) {
           *(int4*)(out_ring + slot) = make_int4(e[0], e[1], e[2], e[3]);
         } else if (out_remote != 0) {
+          JITTER(3);
           st_async_v4(out_remote + 4 * slot, e[0], e[1], e[2], e[3],
                       out_full + 8 * ((q - out_qa) % kMbars));
         }
       }
       bM_prev = bM;
     }
+    JITTER(4);
     __syncthreads();
     if (G > 1 && recv && t == 0 && q - 1 >= in_qa &&
-        q - 1 <= in_qb - kMbars)
+        q - 1 <= in_qb - kMbars) {
+      JITTER(5);
       st_async_b32(word_back, q,
                    empty_back + 8 * ((q - 1 - in_qa) % kMbars));
+    }
   }
   // nothing is sent to a block after it has left
-  if (G > 1) cg::this_cluster().sync();
+  if (G > 1) {
+    JITTER(6);
+    cg::this_cluster().sync();
+  }
 }
 
 // plan: int32 rows (job, rank in its group, group size, warps holding
@@ -689,7 +704,13 @@ __global__ void __launch_bounds__(64)
     // the copier: rows below `low` are not issued yet
     int low = jb.V1 + jb.V2 + 1;
     for (;;) {
-      const long long p = *(volatile long long*)pos;
+      JITTER(9);
+      // one view of the walk for the whole warp, lane 0's: lanes that each
+      // loaded it could see two positions (nothing keeps the warp
+      // converged), and their rows and chunks would then leave gaps below
+      // what lane 0 publishes
+      const long long p = __shfl_sync(0xffffffffu,
+                                      *(volatile long long*)pos, 0);
       if (p < 0) break;  // the walk has ended
       const int d = (int)(p >> 32), lane = (int)(p & 0xffffffff);
       const int stop = max(0, d - kTbAhead);
@@ -710,6 +731,7 @@ __global__ void __launch_bounds__(64)
       __syncwarp();
       low = stop;
       if (l == 0) {
+        JITTER(7);
         asm volatile("fence.acq_rel.cta;" ::: "memory");
         st_release(landed, low);
       }
@@ -723,6 +745,7 @@ __global__ void __launch_bounds__(64)
   int2* rows = (int2*)(out + (int64_t)job * (cap + 1) * 2);
   while (d != 0) {
     if (d < ready) {  // a row not published yet: wait for the copier
+      JITTER(8);
       do ready = ld_acquire(landed);
       while (d < ready);
     }

@@ -81,6 +81,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// JITTER(site) marks a hand-off between threads, warps, blocks or
+// launches, which the jitter build delays (jitter.cuh); nothing in the
+// plain build.
+#include "jitter.cuh"
+
 namespace {
 
 constexpr int kNeg = -(1 << 30);   // MININF
@@ -438,6 +443,7 @@ __device__ void fill_job(const DagJob& jb, const int* __restrict__ data,
     atomicMax(&spans[0], spanL);
     atomicMax(&spans[1], spanO);
   }
+  JITTER(0);
   __syncthreads();
   const int S1 = spans[LANE1 ? 0 : 1], S2 = spans[LANE1 ? 1 : 0];
   // the warps that hold lanes; the others are done
@@ -501,6 +507,7 @@ __device__ void fill_job(const DagJob& jb, const int* __restrict__ data,
                       sinkm);
     }
     bpd += hi - lo + 1;
+    JITTER(1);
     if (nthr == 32)
       __syncwarp();
     else
@@ -690,7 +697,13 @@ __global__ void __launch_bounds__(kTbThreads)
     // are not issued yet
     int low = r1_0 + r2_0 + 1, low1 = r1_0 + 1, low2 = r2_0 + 1;
     for (;;) {
-      const long long p = *(volatile long long*)&sh.pos;
+      JITTER(2);
+      // one view of the walk for the whole warp, lane 0's: lanes that each
+      // loaded it could see two positions (nothing keeps the warp
+      // converged), and their diagonals would then leave gaps below what
+      // lane 0 publishes
+      const long long p = __shfl_sync(0xffffffffu,
+                                      *(volatile long long*)&sh.pos, 0);
       if (p < 0) break;  // the walk has ended
       const int d = (int)(p >> 32), r1 = (int)(p & 0xffffffff), r2 = d - r1;
       const int stop = max(0, d - kTbAhead);
@@ -728,6 +741,7 @@ __global__ void __launch_bounds__(kTbThreads)
       low1 = min(low1, stop1);
       low2 = min(low2, stop2);
       if (l == 0) {
+        JITTER(3);
         asm volatile("fence.acq_rel.cta;" ::: "memory");
         st_release(&sh.landed[0], low);
         st_release(&sh.landed[1], low1);
@@ -746,6 +760,7 @@ __global__ void __launch_bounds__(kTbThreads)
   int2* pairs = (int2*)rows;
   while (k < V1 + V2) {
     if (d < rd || r1 < rn1 || r2 < rn2) {  // not published yet: wait
+      JITTER(4);
       do {
         rd = ld_acquire(&sh.landed[0]);
         rn1 = ld_acquire(&sh.landed[1]);

@@ -59,6 +59,11 @@
 #include <stdint.h>
 #include <stdlib.h>
 
+// JITTER(site) marks a hand-off between threads, warps, blocks or
+// launches, which the jitter build delays (jitter.cuh); nothing in the
+// plain build.
+#include "jitter.cuh"
+
 namespace {
 
 constexpr int kNeg = -(1 << 30);  // MININF = -(2**31) // 2
@@ -178,6 +183,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     sharded_gotoh_chunk_kernel(const Args g) {
     extern __shared__ int4 smem4[];  // 16-byte aligned ring entries
     int* smem = (int*)smem4;
+    JITTER(0);  // the chunk's blocks start at other times
     const int blk = blockIdx.x, p = blockIdx.y;
     // this block's own lanes [s0, s1) of the shard, as block_starts
     const int s0 = (int)((long long)blk * g.Wl / g.nb);
@@ -268,6 +274,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         P.cA[k] = g.lane_is_i ? 1 + 2 * k : 2 + 2 * k;  // code of I or D
         P.cX[k] = 3 + 4 * k - P.cA[k];
     }
+    JITTER(1);
     __syncthreads();  // the labels are staged
 
     const int lag = w * kWarpLag;
@@ -333,6 +340,7 @@ __global__ void __launch_bounds__(kMaxThreads)
             }
             bM_prev = bM;
         }
+        JITTER(2);
         __syncthreads();
     }
 

@@ -19,6 +19,15 @@ A fill launch follows a plan (`fill_plan`, from the jobs' shapes on the
 host): which block or cluster of blocks takes which job and which of its
 lanes, how many lanes each thread holds and how many threads a block has.
 
+Each launcher is two steps: `*_buffers` lists the output and scratch
+tensors of a launch as (name, shape, dtype, init), init a number to fill
+with or None for torch.empty, and `*_into` checks caller-given tensors of
+those specs and launches into them (on the CPU it writes the plain
+version's result into them). The plain wrappers (`gotoh_fill`,
+`gotoh_traceback`) allocate the buffers (`allocate`) in between; a check
+(ops/guard.py) places them inside guard bands instead, and passes
+`jitter=True` to launch the library's jitter build (ops/_build.py).
+
 On CUDA tensors the wrappers launch csrc/gotoh.cu or raise; on CPU tensors
 they run the plain versions of ops/gotoh.py.
 """
@@ -183,8 +192,8 @@ def fill_plan(shapes, cluster_min_lanes: int = CLUSTER_MIN_LANES) -> FillPlan:
                     stage, smem)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("gotoh")
+def _lib(jitter: bool = False) -> ctypes.CDLL:
+    lib = _build.load_library("gotoh", jitter)
     if not getattr(lib, "declared", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.gotoh_fill_launch.restype = i32
@@ -206,32 +215,79 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
+def allocate(specs, device) -> dict:
+    """Each (name, shape, dtype, init) of `specs` as a tensor on `device`:
+    torch.empty for init None, else filled with init."""
+    return {name: (torch.empty(shape, dtype=dtype, device=device)
+                   if init is None else
+                   torch.full(shape, init, dtype=dtype, device=device))
+            for name, shape, dtype, init in specs}
+
+
+def check_buffers(bufs: dict, specs, device) -> None:
+    """Raise unless `bufs` holds a contiguous tensor on `device` for each
+    spec, of its shape and dtype."""
+    for name, shape, dtype, _ in specs:
+        t = bufs.get(name)
+        if t is None:
+            raise ValueError(f"no buffer {name!r}")
+        _check_cuda(name, t, dtype, device)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, not "
+                             f"{tuple(t.shape)}")
+
+
+def gotoh_fill_buffers(n: int, bp_size: int) -> list:
+    """A fill launch's tensors for n jobs of bp_size backpointers: bp,
+    zeroed, with 8 entries of room past the end (the traceback copies whole
+    16-byte chunks of the rows it reads), and the scores."""
+    return [("bp", (bp_size + 8,), torch.int16, 0),
+            ("score", (n,), torch.int32, None)]
+
+
 def gotoh_fill(table: torch.Tensor, seqs: torch.Tensor, bp_size: int,
                plan: FillPlan):
     """Fill every job of `table`. Returns (bp flat uint16 of bp_size
     entries, score int32 (n,)). `bp_size` and the launch `plan` (from the
     jobs' shapes, `launch_sizes`) are passed in so a CUDA launch never reads
     the table back from the card."""
+    bufs = allocate(gotoh_fill_buffers(table.shape[0], bp_size), table.device)
+    return gotoh_fill_into(table, seqs, bp_size, plan, bufs)
+
+
+def gotoh_fill_into(table: torch.Tensor, seqs: torch.Tensor, bp_size: int,
+                    plan: FillPlan, bufs: dict, blocks=None,
+                    jitter: bool = False):
+    """gotoh_fill into `bufs` (gotoh_fill_buffers): returns its bp (as
+    uint16, without the room) and score. `blocks`: the plan's block rows
+    on the device, made from `plan` if not given."""
+    n = table.shape[0]
+    specs = gotoh_fill_buffers(n, bp_size)
     if table.device.type == "cpu":
-        return gotoh_fill_plain(table, seqs)
+        check_buffers(bufs, specs, table.device)
+        bp, score = gotoh_fill_plain(table, seqs)
+        bufs["bp"][:bp_size].copy_(bp.view(torch.int16))
+        bufs["score"].copy_(score)
+        return bufs["bp"][:bp_size].view(torch.uint16), bufs["score"]
     if table.device.type != "cuda":
         raise ValueError(f"no Gotoh fill for device {table.device}")
     global FILL_LAUNCHES
     dev = table.device
-    n = table.shape[0]
     if table.shape != (n, N_COLS):
         raise ValueError(f"table must be (n, {N_COLS}), not {tuple(table.shape)}")
     _check_cuda("table", table, torch.int32, dev)
     _check_cuda("seqs", seqs, torch.int32, dev)
-    # 8 entries of room past the end: the traceback copies whole 16-byte
-    # chunks of the rows it reads
-    bp = torch.zeros(bp_size + 8, dtype=torch.int16,
-                     device=dev)[:bp_size].view(torch.uint16)
-    score = torch.empty(n, dtype=torch.int32, device=dev)
+    check_buffers(bufs, specs, dev)
+    bp = bufs["bp"][:bp_size].view(torch.uint16)
+    score = bufs["score"]
     if n == 0:
         return bp, score
-    lib = _lib()
-    blocks = _to_device(torch.from_numpy(plan.blocks), dev)
+    lib = _lib(jitter)
+    if blocks is None:
+        blocks = _to_device(torch.from_numpy(plan.blocks), dev)
+    _check_cuda("blocks", blocks, torch.int32, dev)
+    if tuple(blocks.shape) != plan.blocks.shape:
+        raise ValueError(f"blocks must be {plan.blocks.shape}")
     with torch.cuda.device(dev):
         err = lib.gotoh_fill_launch(
             table.data_ptr(), seqs.data_ptr(), bp.data_ptr(),
@@ -243,24 +299,43 @@ def gotoh_fill(table: torch.Tensor, seqs: torch.Tensor, bp_size: int,
     return bp, score
 
 
+def gotoh_traceback_buffers(n: int, cap: int) -> list:
+    """A traceback launch's rows for n jobs, zeroed."""
+    return [("out", (n, cap + 1, 2), torch.int32, 0)]
+
+
 def gotoh_traceback(bp: torch.Tensor, score: torch.Tensor,
                     table: torch.Tensor, cap: int) -> torch.Tensor:
     """Trace every job back from (V1, V2). Returns (n, cap+1, 2) int32:
     row 0 = (count, score), the pairs end at row cap, GAP = -1."""
+    bufs = allocate(gotoh_traceback_buffers(table.shape[0], cap),
+                    table.device)
+    return gotoh_traceback_into(bp, score, table, cap, bufs)
+
+
+def gotoh_traceback_into(bp: torch.Tensor, score: torch.Tensor,
+                         table: torch.Tensor, cap: int, bufs: dict,
+                         jitter: bool = False) -> torch.Tensor:
+    """gotoh_traceback into `bufs` (gotoh_traceback_buffers): returns its
+    rows. `bp` needs gotoh_fill_buffers' 8 entries of room past its end."""
+    n = table.shape[0]
+    specs = gotoh_traceback_buffers(n, cap)
     if table.device.type == "cpu":
-        return gotoh_traceback_plain(bp, score, table, cap)
+        check_buffers(bufs, specs, table.device)
+        bufs["out"].copy_(gotoh_traceback_plain(bp, score, table, cap))
+        return bufs["out"]
     if table.device.type != "cuda":
         raise ValueError(f"no Gotoh traceback for device {table.device}")
     global TRACEBACK_LAUNCHES
     dev = table.device
-    n = table.shape[0]
     _check_cuda("bp", bp, torch.uint16, dev)
     _check_cuda("score", score, torch.int32, dev)
     _check_cuda("table", table, torch.int32, dev)
-    out = torch.zeros((n, cap + 1, 2), dtype=torch.int32, device=dev)
+    check_buffers(bufs, specs, dev)
+    out = bufs["out"]
     if n == 0:
         return out
-    lib = _lib()
+    lib = _lib(jitter)
     with torch.cuda.device(dev):
         err = lib.gotoh_traceback_launch(
             bp.data_ptr(), score.data_ptr(), table.data_ptr(), out.data_ptr(),

@@ -16,7 +16,8 @@ shared-memory ring and windows are the same for every job; its copier is
 modelled here (`TracebackCopier`) for the CPU tests.
 
 On CUDA tensors the wrappers launch csrc/popoa_dag.cu or raise; on CPU
-tensors they run the plain versions of ops/popoa_dag.py.
+tensors they run the plain versions of ops/popoa_dag.py. Each is a
+`*_buffers` + allocate + `*_into` split as in ops/gotoh_cuda.py.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .gotoh_cuda import _check_cuda, _raise_on, _to_device
+from .gotoh_cuda import (_check_cuda, _raise_on, _to_device, allocate,
+                         check_buffers)
 from .popoa_dag import (COL_BP_HI, COL_BP_LO, COL_G1, COL_G2, COL_GE, COL_GO,
                         COL_K1, COL_K2, COL_MATCH, COL_MISMATCH, COL_N1,
                         COL_N2, COL_NPW, COL_R, COL_SCRATCH_HI,
@@ -305,8 +307,8 @@ class TracebackCopier:
                 self.words[1].get(r2 % TB_NODES))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("popoa_dag")
+def _lib(jitter: bool = False) -> ctypes.CDLL:
+    lib = _build.load_library("popoa_dag", jitter)
     if not getattr(lib, "declared", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.popoa_dag_fill_launch.restype = i32
@@ -319,6 +321,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def popoa_dag_fill_buffers(bp_size: int, sinkm_size: int,
+                           scratch_size: int) -> list:
+    """A fill launch's tensors: bp, zeroed (launch_sizes' spare entries
+    included), sink M and the state of the jobs kept in global scratch."""
+    return [("bp", (bp_size,), torch.int32, 0),
+            ("sinkm", (sinkm_size,), torch.int32, None),
+            ("scratch", (max(scratch_size, 1),), torch.int32, None)]
+
+
 def popoa_dag_fill(table: torch.Tensor, data: torch.Tensor, bp_size: int,
                    sinkm_size: int, scratch_size: int, smem_bytes: int,
                    lanes=None):
@@ -326,8 +337,25 @@ def popoa_dag_fill(table: torch.Tensor, data: torch.Tensor, bp_size: int,
     sink M int32 flat of sinkm_size). The sizes and, for a CUDA launch,
     `lanes` = (lanes per thread, threads per block) from `fill_lanes` are
     passed in so that a launch never reads the table back from the card."""
+    bufs = allocate(popoa_dag_fill_buffers(bp_size, sinkm_size,
+                                           scratch_size), table.device)
+    return popoa_dag_fill_into(table, data, bp_size, sinkm_size,
+                               scratch_size, smem_bytes, lanes, bufs)
+
+
+def popoa_dag_fill_into(table: torch.Tensor, data: torch.Tensor,
+                        bp_size: int, sinkm_size: int, scratch_size: int,
+                        smem_bytes: int, lanes, bufs: dict,
+                        jitter: bool = False):
+    """popoa_dag_fill into `bufs` (popoa_dag_fill_buffers): returns its bp
+    and sink M."""
+    specs = popoa_dag_fill_buffers(bp_size, sinkm_size, scratch_size)
     if table.device.type == "cpu":
-        return popoa_dag_fill_plain(table, data)
+        check_buffers(bufs, specs, table.device)
+        bp, sinkm = popoa_dag_fill_plain(table, data)
+        bufs["bp"].copy_(bp)
+        bufs["sinkm"].copy_(sinkm)
+        return bufs["bp"], bufs["sinkm"]
     if table.device.type != "cuda":
         raise ValueError(f"no DAG fill for device {table.device}")
     global FILL_LAUNCHES
@@ -345,13 +373,11 @@ def popoa_dag_fill(table: torch.Tensor, data: torch.Tensor, bp_size: int,
                          "from fill_lanes")
     _check_cuda("table", table, torch.int32, dev)
     _check_cuda("data", data, torch.int32, dev)
-    bp = torch.zeros(bp_size, dtype=torch.int32, device=dev)
-    sinkm = torch.empty(sinkm_size, dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(scratch_size, 1), dtype=torch.int32,
-                          device=dev)
+    check_buffers(bufs, specs, dev)
+    bp, sinkm, scratch = bufs["bp"], bufs["sinkm"], bufs["scratch"]
     if n == 0:
         return bp, sinkm
-    lib = _lib()
+    lib = _lib(jitter)
     with torch.cuda.device(dev):
         err = lib.popoa_dag_fill_launch(
             table.data_ptr(), data.data_ptr(), bp.data_ptr(),
@@ -362,6 +388,11 @@ def popoa_dag_fill(table: torch.Tensor, data: torch.Tensor, bp_size: int,
     return bp, sinkm
 
 
+def popoa_dag_traceback_buffers(n: int, cap: int) -> list:
+    """A traceback launch's rows for n jobs, zeroed."""
+    return [("out", (n, cap + HEADER_ROWS, 2), torch.int32, 0)]
+
+
 def popoa_dag_traceback(bp: torch.Tensor, sinkm: torch.Tensor,
                         table: torch.Tensor, data: torch.Tensor,
                         cap: int) -> torch.Tensor:
@@ -369,8 +400,23 @@ def popoa_dag_traceback(bp: torch.Tensor, sinkm: torch.Tensor,
     int32 rows described in ops/popoa_dag.py. A CUDA launch runs one block
     of TRACEBACK_THREADS per job; `bp` comes from popoa_dag_fill (16-byte
     aligned, with launch_sizes' spare entries)."""
+    bufs = allocate(popoa_dag_traceback_buffers(table.shape[0], cap),
+                    table.device)
+    return popoa_dag_traceback_into(bp, sinkm, table, data, cap, bufs)
+
+
+def popoa_dag_traceback_into(bp: torch.Tensor, sinkm: torch.Tensor,
+                             table: torch.Tensor, data: torch.Tensor,
+                             cap: int, bufs: dict,
+                             jitter: bool = False) -> torch.Tensor:
+    """popoa_dag_traceback into `bufs` (popoa_dag_traceback_buffers):
+    returns its rows."""
+    specs = popoa_dag_traceback_buffers(table.shape[0], cap)
     if table.device.type == "cpu":
-        return popoa_dag_traceback_plain(bp, sinkm, table, data, cap)
+        check_buffers(bufs, specs, table.device)
+        bufs["out"].copy_(popoa_dag_traceback_plain(bp, sinkm, table, data,
+                                                    cap))
+        return bufs["out"]
     if table.device.type != "cuda":
         raise ValueError(f"no DAG traceback for device {table.device}")
     global TRACEBACK_LAUNCHES
@@ -379,11 +425,11 @@ def popoa_dag_traceback(bp: torch.Tensor, sinkm: torch.Tensor,
     for name, x in (("bp", bp), ("sinkm", sinkm), ("table", table),
                     ("data", data)):
         _check_cuda(name, x, torch.int32, dev)
-    out = torch.zeros((n, cap + HEADER_ROWS, 2), dtype=torch.int32,
-                      device=dev)
+    check_buffers(bufs, specs, dev)
+    out = bufs["out"]
     if n == 0:
         return out
-    lib = _lib()
+    lib = _lib(jitter)
     with torch.cuda.device(dev):
         err = lib.popoa_dag_traceback_launch(
             bp.data_ptr(), sinkm.data_ptr(), table.data_ptr(),

@@ -56,8 +56,8 @@ def launch_shape(E: int) -> tuple:
     return 8, threads
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("sharded_gotoh")
+def _lib(jitter: bool = False) -> ctypes.CDLL:
+    lib = _build.load_library("sharded_gotoh", jitter)
     if not getattr(lib, "declared", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.sharded_gotoh_run.restype = i32
@@ -74,12 +74,14 @@ _COLS = 13  # a shard's row in the library's table
 
 
 def run_schedule(ops, shards, params, *, Wl: int, H: int, blocks: int,
-                 num_diags: int, lane_is_i: bool, swap_pref: bool) -> None:
+                 num_diags: int, lane_is_i: bool, swap_pref: bool,
+                 jitter: bool = False) -> None:
     """Run `ops` over `shards` (chunk_schedule's keys -> fill_shards' dicts
     of tensors). On cards each shard gets a stream of its own, which first
     waits for the caller's current stream of its device; at the joins
     every such current stream waits for every shard's last chunk. On the
-    CPU the plain version runs them in order."""
+    CPU the plain version runs them in order. `jitter`: launch the
+    library's jitter build (ops/_build.py)."""
     global LAUNCHES, HALO_COPIES, EVENT_WAITS, PROBLEMS, PLAIN_PROBLEMS
     types = {sh["state"].device.type for sh in shards.values()}
     if types == {"cpu"}:
@@ -142,7 +144,7 @@ def run_schedule(ops, shards, params, *, Wl: int, H: int, blocks: int,
     pad = [0] * (MAX_PW - params.num_pw)
     go = [int(x) for x in params.gap_open] + pad
     ge = [int(x) for x in params.gap_extend] + pad
-    err = _lib().sharded_gotoh_run(
+    err = _lib(jitter).sharded_gotoh_run(
         table.data_ptr(), len(keys), op_rows.data_ptr(), len(ops), Bl,
         first["a"].shape[1], first["b"].shape[1], int(params.match),
         int(params.mismatch), *go, *ge, params.num_pw, int(lane_is_i),

@@ -39,6 +39,7 @@ import torch
 from ..device import resolve_device
 from ..ops import sharded_gotoh_cuda
 from ..ops.align_params import MININF
+from ..ops.gotoh_cuda import allocate, check_buffers
 from ..ops.gotoh import _build_skew_inputs, _traceback_bp
 from ..ops.sharded_gotoh import HALO_Q, block_count, run_schedule_plain
 
@@ -110,6 +111,56 @@ def chunk_schedule(gap_n: int, lane_n: int, chunks: int, peer) -> list:
     return ops
 
 
+def shard_layout(W: int, lane_n: int, num_diags: int) -> tuple:
+    """(Wl, H, blocks, chunks) of a fill of W lanes over lane_n shards:
+    a shard's lanes, the diagonals of a chunk, the blocks of a shard and
+    the chunks of the fill."""
+    Wl = W // lane_n
+    H = min(HALO, Wl)
+    return Wl, H, block_count(Wl, H, BLOCK_LANES), -(-num_diags // H)
+
+
+def shard_buffers(mesh, B: int, W: int, num_diags: int,
+                  emit_bp: bool) -> dict:
+    """The tensors each shard's fill writes, per (gap row, lane shard) of
+    `mesh`, as (name, shape, dtype, init) (ops/gotoh_cuda.py::allocate):
+    "state" and "score" filled with MININF; "bp" with `emit_bp`; "out",
+    one halo slot per chunk so that a slot is never rewritten, on every
+    shard but a row's last; "in", its left neighbour's slots copied in,
+    on a shard whose left neighbour is on another device."""
+    gap_n, lane_n = len(mesh), len(mesh[0])
+    if B % gap_n:
+        raise ValueError(f"batch {B} must divide the gap axis {gap_n}")
+    if W % lane_n:
+        raise ValueError(f"{W} lanes do not split over {lane_n} shards")
+    Bl = B // gap_n
+    Wl, H, _, chunks = shard_layout(W, lane_n, num_diags)
+    slots = (chunks, Bl, HALO_Q, H)
+    out = {}
+    for g, row in enumerate(mesh):
+        for s, dev in enumerate(row):
+            specs = [("state", (2, Bl, HALO_Q, Wl), torch.int32, MININF),
+                     ("score", (Bl,), torch.int32, MININF)]
+            if emit_bp:
+                specs.append(("bp", (num_diags, Bl, Wl), torch.int16, None))
+            if s + 1 < lane_n:
+                specs.append(("out", slots, torch.int32, None))
+            if s and row[s - 1] != dev:
+                specs.append(("in", slots, torch.int32, None))
+            out[(g, s)] = specs
+    return out
+
+
+def shard_inputs(a, b, V1, V2, mesh) -> dict:
+    """Each shard's inputs, per (gap row, lane shard) of `mesh`: the rows
+    of a, b, V1 and V2 (numpy) of its gap row."""
+    Bl = a.shape[0] // len(mesh)
+    return {(g, s): {name: np.ascontiguousarray(x[g * Bl:(g + 1) * Bl])
+                     for name, x in (("a", a), ("b", b), ("V1", V1),
+                                     ("V2", V2))}
+            for g, row in enumerate(mesh) for s in range(len(row))}
+
+
 def fill_shards(a, b, V1, V2, params, mesh, num_diags: int,
                 lane_is_i: bool, swap_pref: bool, emit_bp: bool,
                 chunk=None) -> list:
@@ -117,59 +168,50 @@ def fill_shards(a, b, V1, V2, params, mesh, num_diags: int,
     split over the gap rows of `mesh`, W over each row's lane shards.
     Returns per gap row the list of its shards' tensors ("score", "bp") on
     their devices, the work queued and the callers' current streams
-    waiting for it. By default the schedule runs through
-    ops/sharded_gotoh_cuda.py::run_schedule (the kernel on cards, the
-    plain version on the CPU); a `chunk` (such as the plain
+    waiting for it: shard_inputs and shard_buffers on each shard's device,
+    then fill_shards_into."""
+    specs = shard_buffers(mesh, *a.shape, num_diags, emit_bp)
+    shards = {}
+    for k, ins in shard_inputs(a, b, V1, V2, mesh).items():
+        dev = mesh[k[0]][k[1]]
+        shards[k] = {**{name: torch.from_numpy(x).to(dev)
+                        for name, x in ins.items()},
+                     **allocate(specs[k], dev)}
+    return fill_shards_into(shards, params, mesh, num_diags, lane_is_i,
+                            swap_pref, chunk=chunk)
+
+
+def fill_shards_into(shards: dict, params, mesh, num_diags: int,
+                     lane_is_i: bool, swap_pref: bool, chunk=None,
+                     jitter: bool = False) -> list:
+    """fill_shards over caller-given tensors: `shards` maps each (gap row,
+    lane shard) of `mesh` to a dict of its inputs (shard_inputs' names, on
+    its device) and its buffers (shard_buffers). By default the schedule
+    runs through ops/sharded_gotoh_cuda.py::run_schedule (the kernel on
+    cards, or its jitter build with `jitter`; the plain version on the
+    CPU); a `chunk` (such as the plain
     ops/sharded_gotoh.py::chunk_fill_plain, on any device) fills every
     chunk in the schedule's serial order instead."""
     gap_n, lane_n = len(mesh), len(mesh[0])
-    B, W = a.shape
-    if B % gap_n:
-        raise ValueError(f"batch {B} must divide the gap axis {gap_n}")
-    if W % lane_n:
-        raise ValueError(f"{W} lanes do not split over {lane_n} shards")
-    Bl, Wl = B // gap_n, W // lane_n
-    H = min(HALO, Wl)
-    blocks = block_count(Wl, H, BLOCK_LANES)
-    chunks = -(-num_diags // H)
-    rows = []
-    for g, row in enumerate(mesh):
-        rs = slice(g * Bl, (g + 1) * Bl)
-        shards = []
-        for s, dev in enumerate(row):
-            def put(x, dev=dev):
-                return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-            sh = {
-                "L0": s * Wl,
-                "a": put(a[rs]), "b": put(b[rs]),
-                "V1": put(V1[rs]), "V2": put(V2[rs]),
-                "state": torch.full((2, Bl, HALO_Q, Wl), MININF,
-                                    dtype=torch.int32, device=dev),
-                "score": torch.full((Bl,), MININF, dtype=torch.int32,
-                                    device=dev),
-                "bp": (torch.empty((num_diags, Bl, Wl), dtype=torch.int16,
-                                   device=dev) if emit_bp else None),
-                # one halo slot per chunk, so a slot is never rewritten
-                "out": (torch.empty((chunks, Bl, HALO_Q, H),
-                                    dtype=torch.int32, device=dev)
-                        if s + 1 < lane_n else None),
-            }
-            if s and row[s - 1] != dev:
-                sh["in"] = torch.empty((chunks, Bl, HALO_Q, H),
-                                       dtype=torch.int32, device=dev)
-            shards.append(sh)
-        rows.append(shards)
-    shards = {(g, s): rows[g][s] for g in range(gap_n)
-              for s in range(lane_n)}
+    Bl, W = shards[(0, 0)]["a"].shape
+    emit_bp = "bp" in shards[(0, 0)]
+    specs = shard_buffers(mesh, gap_n * Bl, W, num_diags, emit_bp)
+    Wl, H, blocks, chunks = shard_layout(W, lane_n, num_diags)
+    full = {}
+    for (g, s), sh in shards.items():
+        check_buffers(sh, specs[(g, s)], sh["a"].device)
+        full[(g, s)] = {**sh, "L0": s * Wl, "bp": sh.get("bp"),
+                        "out": sh.get("out")}
     ops = chunk_schedule(gap_n, lane_n, chunks,
-                         {k for k, sh in shards.items() if "in" in sh})
+                         {k for k, sh in full.items() if "in" in sh})
     kw = dict(Wl=Wl, H=H, blocks=blocks, num_diags=num_diags,
               lane_is_i=lane_is_i, swap_pref=swap_pref)
     if chunk is None:
-        sharded_gotoh_cuda.run_schedule(ops, shards, params, **kw)
+        sharded_gotoh_cuda.run_schedule(ops, full, params, jitter=jitter,
+                                        **kw)
     else:
-        run_schedule_plain(ops, shards, params, chunk=chunk, **kw)
-    return rows
+        run_schedule_plain(ops, full, params, chunk=chunk, **kw)
+    return [[full[(g, s)] for s in range(lane_n)] for g in range(gap_n)]
 
 
 def gather(rows):

@@ -7,7 +7,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. environment: torch and CUDA versions, the card's name and power limit;
    a card is required;
 2. build: every kernel source of centrolign_tpu_torch/csrc/ with nvcc for
-   sm_90a, one nvcc process per source, all started together;
+   sm_90a, one nvcc process per source, all started together; beside them
+   the sanitized builds (phase 11) and the jitter builds (phase 14: the
+   same flags plus -DCENTROLIGN_JITTER=1), waited for before phase 3; a
+   failed build raises;
 3. the Gotoh kernels against their plain PyTorch versions on a bag of jobs
    covering npw 1-3, both lane orientations, swap_pref both, more than 8
    jobs in one launch, the fill's edge widths (short sides 0-5, 31-33,
@@ -116,15 +119,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    three DAG jobs against the sanitized native popoa: no ASan or UBSan
    report, exit 0, both CIGARs the reference's, all five CUDA libraries
    launched (their host launchers run under the sanitizers); its wall;
-12. poisoned memory: one small launch of each kernel family (the Gotoh
-   fill and traceback with a job split over a cluster, the single-problem
-   entry, the DAG fill and traceback with a job in global scratch, L3, L4,
-   L5 over 2 shards), run twice, each time after every free block of the
+12. poisoned memory: one launch of each kernel family (the Gotoh fill with
+   a job split over a cluster and one of a short side over 4096, the
+   Gotoh traceback, the single-problem entry, the DAG fill and traceback
+   with a job in global scratch, L3, L4, L5 over 2 shards) through its
+   wrappers, and the single-problem entry's pair through
+   gotoh_align_device, run twice, each time after every free block of the
    caching allocator (both pools) was overwritten, with 0xA5 and then
    0x5A: every output bit-equal to the plain version's, and no new
    segment allocated in either run, so every tensor a launch was handed
    came from poisoned memory; a kernel that read memory nobody wrote
    would differ;
+13. guard bands: each kernel family (phase 12's launches) through its
+   wrappers, then with every
+   input, output and scratch tensor placed between guard bands of at least
+   64 KiB (ops/guard.py), launched by the `*_into` half of its launchers,
+   once with bands of 0xA5 and once of 0x5A: every band and every input
+   unchanged, every output bit-equal to the plain version's; a write past
+   a tensor into its neighbour, or a read of a band that reaches an output,
+   fails it and is named;
+14. timing jitter: each family on the jitter build (csrc/jitter.cuh: a
+   seeded sleep at every hand-off between threads, warps, blocks and
+   launches) under 64 seeds x largest sleeps of 200 and 2,000 ns, inside
+   guard bands: every output bit-equal to the plain version's; a launch
+   that does not end within 60 s (a spin that deadlocks) ends the run;
 and at the end neither jax nor any module of the JAX package may be in the
 process, nor in any worker or rank. Each path runs with the launch counters set to 0 just before it
 and read just after. The last three lines of standard output are the
@@ -1707,12 +1725,176 @@ def poison_free(device, byte):
     return written
 
 
-def poisoned_memory(rng, params, device, card):
-    """Phase 12: one small launch of every kernel family, run twice, each
-    time after every free byte of the caching allocator was overwritten
-    with another pattern; every output equal across the runs and to the
-    plain version's, and no run allocating a new segment (so each of its
-    tensors came from poisoned memory). Returns the phase's wall."""
+def family_inputs(rng, params, small=False):
+    """The inputs of one small launch of each kernel family, shared by
+    phases 12-14 (numpy and prepared jobs): Gotoh jobs, one split over a
+    cluster; a pair for the single-problem entry; DAG jobs, one in shared
+    memory and one in global scratch; L3 problems (n 0, 8, tie-dense,
+    bent, over a block); an L4 problem; an L5 pair. `small` (the CPU
+    tests) cuts each to a size the plain versions run in seconds on the
+    CPU."""
+    import numpy as np
+    from centrolign_tpu_torch.ops import gotoh_cuda as gc
+    from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+
+    def pair(L1, L2):
+        s1 = rng.integers(0, 4, L1).astype(np.int32)
+        s2 = np.resize(s1, L2).astype(np.int32)
+        s2[rng.integers(0, L2, L2 // 10)] = rng.integers(0, 4)
+        return s1, s2
+
+    if small:
+        gjobs = [(*pair(L1, L2), bool(k % 2), params.truncated(1 + k % 3))
+                 for k, (L1, L2) in enumerate(((40, 60), (90, 70),
+                                               (150, 140)))]
+    else:
+        bag = make_bag(rng, params)
+        gjobs = bag[:3] + [j for j in bag if min(len(j[0]), len(j[1]))
+                           == gc.CLUSTER_MIN_LANES + 1]
+    single = (*pair(*((300, 250) if small else (2000, 1500))), True, params)
+    dag = ((40, 2, 8, 0, 5), (60, 4, 16, 0, 0)) if small else \
+        ((150, 2, 8, 0, 20), (300, 4, 32, 0, 0))
+    djobs = [related_dag_job(rng, params.truncated(2), *dag[0]),
+             related_dag_job(rng, params, *dag[1])]
+    cdq = [cdq_problem(rng, 0), cdq_problem(rng, 8),
+           cdq_problem(rng, 40 if small else 300, tie_dense=True),
+           cdq_problem(rng, 50 if small else 500, bent=True)]
+    if not small:
+        cdq.append(cdq_problem(rng, 1100))
+    scan = scan_problem(rng, 300 if small else 4096)
+    shard = pair(*((300, 260) if small else (1500, 1300)))
+    if not small:
+        require(gc.launch_sizes(gjobs)[1].cluster > 1, "no Gotoh job of "
+                "phases 12-14 is split over a cluster")
+        require(pdc.dag_job_table(djobs)[1] > 0, "no DAG job of phases "
+                "12-14 keeps its state in global scratch")
+    return {"gotoh": gjobs, "single": single, "dag": djobs, "cdq": cdq,
+            "scan": scan, "shard": shard}
+
+
+def poisoned_memory(families, single, device, card):
+    """Phase 12: each of `families` (guard_families) through its
+    wrappers, and `single` (family_inputs' pair) through the public entry
+    gotoh_align_device, run twice, each time after every free byte of the
+    caching allocator was overwritten with another pattern; every output
+    bit-equal to the plain version's, and no run allocating a new segment
+    (so each tensor the wrappers allocated came from poisoned memory).
+    Returns the phase's wall."""
+    import numpy as np
+    import torch
+    from centrolign_tpu_torch.ops import gotoh_cuda as gc
+
+    t_start = time.perf_counter()
+    # the entry's alignment and score, as gotoh_align_device reads them
+    # from the single-problem entry's traceback rows
+    entry = next(f for f in families if f.name == "single-problem entry")
+    shape, raw = entry.want["rows"]
+    r = raw.view(torch.int32).reshape(shape)[0]
+    want_entry = {"aln": as_bytes(r[len(r) - int(r[0, 0]):].long()),
+                  "score": as_bytes(r[0, 1:2].long())}
+
+    def run(what):
+        # every family's outputs stay allocated until all have run, so no
+        # launch is handed memory that another one wrote
+        outs = [(fam, fam.wrapper()) for fam in families]
+        aln, score = gc.gotoh_align_device(single[0], single[1], single[3],
+                                           single[2], device=device)
+        for fam, out in outs:
+            check_run(fam, {k: as_bytes(v) for k, v in out.items()}, [],
+                      what)
+        got = {"aln": as_bytes(torch.from_numpy(np.asarray(aln, np.int64))),
+               "score": as_bytes(torch.tensor([score]))}
+        for k, want in want_entry.items():
+            diff = first_difference(got[k], want)
+            require(diff is None, f"gotoh_align_device {k}, {what}: differs "
+                    f"from its plain version: {diff}")
+
+    for _ in range(2):  # the allocator's segments for these launches
+        run("unpoisoned")
+    seen = []
+    for byte in (0xA5, 0x5A):
+        written = poison_free(device, byte)
+        seg0 = torch.cuda.memory_stats(device)["segment.all.allocated"]
+        run(f"after poisoning with {byte:#04x} (a kernel that read memory "
+            f"it did not write)")
+        seg1 = torch.cuda.memory_stats(device)["segment.all.allocated"]
+        require(seg1 == seg0, f"the run after poisoning with {byte:#04x} "
+                f"allocated {seg1 - seg0} new segments: not all of its "
+                f"memory was poisoned")
+        seen.append(written)
+    wall = time.perf_counter() - t_start
+    outputs = sum(len(f.want) for f in families) + len(want_entry)
+    print(f"poisoned memory: {outputs} outputs of {len(families)} kernel "
+          f"families ({', '.join(f.name for f in families)}) and of "
+          f"gotoh_align_device bit-equal to their plain versions after the "
+          f"allocator's free memory was filled with 0xa5 "
+          f"({seen[0]['large']} B large pool, {seen[0]['small']} B small) "
+          f"and with 0x5a ({seen[1]['large']} B, {seen[1]['small']} B), no "
+          f"new segment in either run; wall {wall:.3f} s ({card})",
+          flush=True)
+    return wall
+
+
+# ---------------------------------------------------------------------------
+# guard bands (phase 13) and timing jitter (phase 14)
+
+# the guards' band patterns (phase 13), the jitter build's seeds and largest
+# sleeps in ns (phase 14), and the seconds a launch may take before the
+# run is given up as hung
+GUARD_PATTERNS = (0xA5, 0x5A)
+JITTER_SEEDS = tuple(range(1, 65))
+JITTER_MAX_NS = (200, 2000)
+LAUNCH_TIMEOUT_S = 60.0
+
+
+class LaunchTimeout(RuntimeError):
+    """A launch that did not end within LAUNCH_TIMEOUT_S."""
+
+
+def as_bytes(x):
+    """(shape, the bytes) of tensor `x` on the host."""
+    import torch
+    x = x.detach().contiguous()
+    return tuple(x.shape), x.reshape(-1).view(torch.uint8).cpu()
+
+
+def first_difference(got, want):
+    """None if the (shape, bytes) pairs are equal, else where they differ
+    first."""
+    import torch
+    if got[0] != want[0]:
+        return f"shape {got[0]}, want {want[0]}"
+    if torch.equal(got[1], want[1]):
+        return None
+    k = int((got[1] != want[1]).nonzero()[0])
+    return (f"byte {k} is {int(got[1][k]):#04x}, want {int(want[1][k]):#04x} "
+            f"({int((got[1] != want[1]).sum())} bytes differ)")
+
+
+class Family:
+    """One launch of a kernel family (phases 12-14 and the CPU tests):
+    its `inputs` ({group: {name: tensor}}) and its launchers' buffer
+    `specs` ({group: [(name, shape, dtype, init)]}), `launch(ins, bufs,
+    jitter)`, which launches into tensors of those shapes and returns its
+    outputs by name, `wrapper()`, the same launch through the package's
+    own wrappers (which allocate the buffers), and `want`, the plain
+    versions' outputs on the same inputs as (shape, bytes). `library` is
+    the csrc/ source it launches."""
+
+    def __init__(self, name, library, inputs, specs, launch, wrapper,
+                 plain):
+        self.name, self.library = name, library
+        self.inputs, self.specs, self.launch = inputs, specs, launch
+        self.wrapper = wrapper
+        self.want = {k: as_bytes(v) for k, v in plain().items()}
+
+
+def guard_families(inputs, params, device, big=None):
+    """The Family of every kernel family on `inputs` (family_inputs):
+    the Gotoh fill (with `big`, a job of a short side over 4096, beside
+    family_inputs' jobs), the Gotoh traceback, the single-problem entry,
+    the DAG fill and traceback, L3, L4 and L5 over 2 shards (of two cards
+    where there are two, else both on `device`)."""
     import numpy as np
     import torch
     from centrolign_tpu_torch.ops import chain_cdq as plain_cdq
@@ -1726,137 +1908,320 @@ def poisoned_memory(rng, params, device, card):
     from centrolign_tpu_torch.ops.sharded_gotoh import chunk_fill_plain
     from centrolign_tpu_torch.parallel import sharded_gotoh as sh
 
-    t_start = time.perf_counter()
-    # Gotoh (K1-K3, L1): small jobs beside one split over a cluster
-    bag = make_bag(rng, params)
-    gjobs = bag[:3] + [j for j in bag if min(len(j[0]), len(j[1]))
-                       == gc.CLUSTER_MIN_LANES + 1]
-    gtab = gc.params_table(gjobs).to(device)
-    gseq = gc.pack_seqs(gjobs).to(device)
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    fams = []
+    # the Gotoh fill (K1-K3) and traceback (L1)
+    gjobs = inputs["gotoh"] + ([big] if big else [])
+    gtab, gseq = gc.params_table(gjobs).to(device), gc.pack_seqs(gjobs).to(device)
     bp_size, plan, cap = gc.launch_sizes(gjobs)
-    require(plan.cluster > 1, "the Gotoh jobs of phase 12 have no cluster "
-            "job")
-    # the single-problem entry (K4)
-    s1 = rng.integers(0, 4, 2000).astype(np.int32)
-    s2 = np.resize(s1, 1500).astype(np.int32)
-    s2[rng.integers(0, 1500, 150)] = rng.integers(0, 4)
-    single = (s1, s2, True, params)
-    # the DAG kernels (L2): one job in shared memory, one in global scratch
-    djobs = [related_dag_job(rng, params.truncated(2), 150, 2, 8, 0, 20),
-             related_dag_job(rng, params, 300, 4, 32, 0, 0)]
-    dtab, ddata, dsizes = pdc.dag_launch(djobs, device)
-    dscr, dcap = dsizes[2], dsizes[4]
-    require(dscr > 0, "no DAG job of phase 12 keeps its state in global "
-            "scratch")
-    # L3: a batch of problems (n 0, 8, tie-dense, bent, over a block)
-    probs = [cdq_problem(rng, 0), cdq_problem(rng, 8),
-             cdq_problem(rng, 300, tie_dense=True),
-             cdq_problem(rng, 500, bent=True), cdq_problem(rng, 1100)]
+    bp_p, sc_p = plain_gotoh.gotoh_fill_plain(gtab, gseq)
+
+    def gotoh_fill(ins, bufs, jitter):
+        i = ins["fill"]
+        bp, score = gc.gotoh_fill_into(i["table"], i["seqs"], bp_size, plan,
+                                       bufs["fill"], blocks=i["blocks"],
+                                       jitter=jitter)
+        return {"bp": bp.view(torch.int16), "score": score}
+
+    fams.append(Family(
+        "Gotoh fill", "gotoh",
+        {"fill": {"table": gtab, "seqs": gseq, "blocks": put(plan.blocks)}},
+        {"fill": gc.gotoh_fill_buffers(len(gjobs), bp_size)}, gotoh_fill,
+        lambda: dict(zip(("bp", "score"), (
+            x.view(torch.int16) if x.dtype == torch.uint16 else x
+            for x in gc.gotoh_fill(gtab, gseq, bp_size, plan)))),
+        lambda: {"bp": bp_p.view(torch.int16), "score": sc_p}))
+    # the traceback reads the fill's bp with its 8 entries of room
+    bp_room = torch.zeros(bp_size + 8, dtype=torch.int16, device=device)
+    bp_room[:bp_size] = bp_p.view(torch.int16)
+
+    def gotoh_traceback(ins, bufs, jitter):
+        i = ins["traceback"]
+        return {"rows": gc.gotoh_traceback_into(
+            i["bp"][:bp_size].view(torch.uint16), i["score"], i["table"],
+            cap, bufs["traceback"], jitter=jitter)}
+
+    fams.append(Family(
+        "Gotoh traceback", "gotoh",
+        {"traceback": {"bp": bp_room, "score": sc_p, "table": gtab}},
+        {"traceback": gc.gotoh_traceback_buffers(len(gjobs), cap)},
+        gotoh_traceback,
+        lambda: {"rows": gc.gotoh_traceback(bp_room[:bp_size].view(
+            torch.uint16), sc_p, gtab, cap)},
+        lambda: {"rows": plain_gotoh.gotoh_traceback_plain(bp_p, sc_p, gtab,
+                                                           cap)}))
+    # the single-problem entry (K4): the fill and traceback launches of
+    # gotoh_align_device
+    single = [inputs["single"]]
+    tab1, seq1 = gc.params_table(single).to(device), gc.pack_seqs(single).to(device)
+    bp1, plan1, cap1 = gc.launch_sizes(single)
+
+    def single_entry(ins, bufs, jitter):
+        i = ins["entry"]
+        bp, score = gc.gotoh_fill_into(i["table"], i["seqs"], bp1, plan1,
+                                       bufs["fill"], blocks=i["blocks"],
+                                       jitter=jitter)
+        return {"rows": gc.gotoh_traceback_into(
+            bp, score, i["table"], cap1, bufs["traceback"], jitter=jitter)}
+
+    def single_plain():
+        bp, score = plain_gotoh.gotoh_fill_plain(tab1, seq1)
+        return {"rows": plain_gotoh.gotoh_traceback_plain(bp, score, tab1,
+                                                          cap1)}
+
+    fams.append(Family(
+        "single-problem entry", "gotoh",
+        {"entry": {"table": tab1, "seqs": seq1, "blocks": put(plan1.blocks)}},
+        {"fill": gc.gotoh_fill_buffers(1, bp1),
+         "traceback": gc.gotoh_traceback_buffers(1, cap1)},
+        single_entry,
+        lambda: {"rows": gc.gotoh_fill_tb(tab1, seq1, bp1, plan1, cap1)},
+        single_plain))
+    # the DAG fill and traceback (L2)
+    dtab, ddata, (dbp, dsm, dscr, smem, dcap, lanes) = pdc.dag_launch(
+        inputs["dag"], device)
+    dbp_p, dsm_p = plain_dag.popoa_dag_fill_plain(dtab, ddata)
+
+    def dag_fill(ins, bufs, jitter):
+        i = ins["fill"]
+        bp, sm = pdc.popoa_dag_fill_into(i["table"], i["data"], dbp, dsm,
+                                         dscr, smem, lanes, bufs["fill"],
+                                         jitter=jitter)
+        return {"bp": bp, "sinkm": sm}
+
+    fams.append(Family(
+        "DAG fill", "popoa_dag", {"fill": {"table": dtab, "data": ddata}},
+        {"fill": pdc.popoa_dag_fill_buffers(dbp, dsm, dscr)}, dag_fill,
+        lambda: dict(zip(("bp", "sinkm"), pdc.popoa_dag_fill(
+            dtab, ddata, dbp, dsm, dscr, smem, lanes))),
+        lambda: {"bp": dbp_p, "sinkm": dsm_p}))
+
+    def dag_traceback(ins, bufs, jitter):
+        i = ins["traceback"]
+        return {"rows": pdc.popoa_dag_traceback_into(
+            i["bp"], i["sinkm"], i["table"], i["data"], dcap,
+            bufs["traceback"], jitter=jitter)}
+
+    fams.append(Family(
+        "DAG traceback", "popoa_dag",
+        {"traceback": {"bp": dbp_p, "sinkm": dsm_p, "table": dtab,
+                       "data": ddata}},
+        {"traceback": pdc.popoa_dag_traceback_buffers(len(inputs["dag"]),
+                                                      dcap)},
+        dag_traceback,
+        lambda: {"rows": pdc.popoa_dag_traceback(dbp_p, dsm_p, dtab, ddata,
+                                                 dcap)},
+        lambda: {"rows": plain_dag.popoa_dag_traceback_plain(
+            dbp_p, dsm_p, dtab, ddata, dcap)}))
+    # L3
+    probs = inputs["cdq"]
     _, arrays = plain_cdq.pack(probs, max(len(p[0]) for p in probs))
-    cdq_t = [torch.from_numpy(a).to(device) for a in arrays]
+    names = ("key", "step", "wi", "fc", "cs", "prefix", "levels")
+    cdq_in = dict(zip(names, (put(a) for a in arrays)))
+    B, N = cdq_in["key"].shape[:2]
     anchors = sum(len(p[0]) for p in probs)
+    outs = ("dp", "bp", "tie", "struct", "stored")
+
+    def cdq(ins, bufs, jitter):
+        i = ins["scan"]
+        return dict(zip(outs, cc.cdq_scan_into(
+            *(i[n] for n in names), anchors, bufs["scan"], jitter=jitter)))
+
+    fams.append(Family(
+        "L3", "chain_cdq", {"scan": cdq_in},
+        {"scan": cc.cdq_scan_buffers(B, N, cc.grid_blocks(device))}, cdq,
+        lambda: dict(zip(outs, cc.cdq_scan(*(cdq_in[n] for n in names),
+                                           anchors))),
+        lambda: dict(zip(outs, plain_cdq.cdq_scan_plain(
+            *(cdq_in[n] for n in names[:6]))))))
     # L4
-    args = scan_problem(rng, 4096)
-    _, _, ev_np, dp0_np, lv_np = plain_scan.build_events(*args[:6])
-    ev = torch.from_numpy(ev_np).to(device)
-    dp0 = torch.from_numpy(dp0_np).to(device)
-    lv = tuple(torch.from_numpy(a).to(device) for a in lv_np)
-    # L5 over 2 shards of the card
-    a1 = rng.integers(0, 4, 1500).astype(np.int32)
-    a2 = np.resize(a1, 1300).astype(np.int32)
-    a2[rng.integers(0, 1300, 130)] = rng.integers(0, 4)
+    args = inputs["scan"]
+    _, _, ev_np, dp0_np, (st_np, q_np) = plain_scan.build_events(*args[:6])
+    scan_in = {"ev": put(ev_np), "dp0": put(dp0_np), "steps": put(st_np),
+               "queries": put(q_np)}
+
+    def event(ins, bufs, jitter):
+        i = ins["scan"]
+        dp, winner = sc.event_scan_into(
+            i["ev"], i["dp0"], (i["steps"], i["queries"]), len(args[4]),
+            bufs["scan"], jitter=jitter)
+        return {"dp": dp, "winner": winner}
+
+    fams.append(Family(
+        "L4", "chain_scan", {"scan": scan_in},
+        {"scan": sc.event_scan_buffers(len(ev_np), len(dp0_np),
+                                       cc.grid_blocks(device))}, event,
+        lambda: dict(zip(("dp", "winner"), sc.event_scan(
+            scan_in["ev"], scan_in["dp0"],
+            (scan_in["steps"], scan_in["queries"]), len(args[4])))),
+        lambda: dict(zip(("dp", "winner"), plain_scan.event_scan_plain(
+            scan_in["ev"], scan_in["dp0"])))))
+    # L5 over 2 shards
     a, b, V1, V2, p5, nd, lii, swap = shard_inputs(
-        a1, a2, params.truncated(2), 2, True)
+        *inputs["shard"], params.truncated(2), 2, True)
+    two = device.type == "cuda" and torch.cuda.device_count() >= 2
+    mesh = [[torch.device("cuda", 0), torch.device("cuda", 1)] if two
+             else [device, device]]
+    shard_in = {k: {n: torch.from_numpy(x).to(mesh[k[0]][k[1]])
+                    for n, x in v.items()}
+                for k, v in sh.shard_inputs(a, b, V1, V2, mesh).items()}
 
-    def shard_args(devices):
-        return (a, b, V1, V2, p5, [devices], nd, lii, swap, True)
+    def gathered(rows):
+        score, bp = sh.gather(rows)
+        return {"score": torch.from_numpy(score),
+                "bp": torch.from_numpy(bp.view(np.int16))}
 
-    def run(plain):
-        out = {}
-        if plain:
-            bp, score = plain_gotoh.gotoh_fill_plain(gtab, gseq)
-            rows = plain_gotoh.gotoh_traceback_plain(bp, score, gtab, cap)
-        else:
-            bp, score = gc.gotoh_fill(gtab, gseq, bp_size, plan)
-            rows = gc.gotoh_traceback(bp, score, gtab, cap)
-        out["gotoh_fill bp"] = bp.view(torch.int16)
-        out["gotoh_fill score"], out["gotoh_traceback rows"] = score, rows
-        if plain:
-            tab1 = gc.params_table([single]).to(device)
-            seq1 = gc.pack_seqs([single]).to(device)
-            bp1, sc1 = plain_gotoh.gotoh_fill_plain(tab1, seq1)
-            r = plain_gotoh.gotoh_traceback_plain(
-                bp1, sc1, tab1, len(s1) + len(s2))[0].cpu()
-            aln1, score1 = r[len(r) - int(r[0, 0]):].long(), int(r[0, 1])
-        else:
-            aln1, score1 = gc.gotoh_align_device(s1, s2, params, True,
-                                                 device=device)
-            aln1 = torch.from_numpy(np.asarray(aln1, np.int64))
-        out["gotoh_align_single aln"] = aln1
-        out["gotoh_align_single score"] = torch.tensor([score1])
-        if plain:
-            bp, sm = plain_dag.popoa_dag_fill_plain(dtab, ddata)
-            rows = plain_dag.popoa_dag_traceback_plain(bp, sm, dtab, ddata,
-                                                       dcap)
-        else:
-            bp, sm = pdc.popoa_dag_fill(dtab, ddata, *dsizes[:4],
-                                        dsizes[5])
-            rows = pdc.popoa_dag_traceback(bp, sm, dtab, ddata, dcap)
-        out["popoa_dag_fill bp"], out["popoa_dag_fill sink M"] = bp, sm
-        out["popoa_dag_traceback rows"] = rows
-        got = (plain_cdq.cdq_scan_plain(*cdq_t) if plain
-               else cc.cdq_scan(*cdq_t, anchors=anchors))
-        for name, x in zip(("dp", "bp", "tie", "struct", "stored"), got):
-            out[f"chain_cdq_scan {name}"] = x
-        got = (plain_scan.event_scan_plain(ev, dp0) if plain
-               else sc.event_scan(ev, dp0, lv, anchors=len(args[4])))
-        for name, x in zip(("dp", "winners"), got):
-            out[f"chain_scan_event {name}"] = x
-        if plain:
-            rows5 = sh.fill_shards(*shard_args([device]),
-                                   chunk=chunk_fill_plain)
-        else:
-            rows5 = sh.fill_shards(*shard_args([device, device]))
-        score5, bp5 = sh.gather(rows5)
-        out["sharded_gotoh_fill score"] = torch.from_numpy(score5)
-        out["sharded_gotoh_fill bp"] = torch.from_numpy(bp5.view(np.int16))
-        torch.cuda.synchronize(device)
-        return {k: (x.view(torch.int32) if x.dtype == torch.float32
-                    else x).cpu() for k, x in out.items()}
+    def shards(ins, bufs, jitter):
+        rows = sh.fill_shards_into({k: {**ins[k], **bufs[k]} for k in ins},
+                                   p5, mesh, nd, lii, swap, jitter=jitter)
+        for dev in set(mesh[0]):  # the gather would wait without a limit
+            finish(dev, "L5")
+        return gathered(rows)
 
-    def check(got, want, what):
-        require(got.keys() == want.keys(), f"{what}: other outputs")
-        for k in want:
-            require(got[k].shape == want[k].shape
-                    and torch.equal(got[k], want[k]),
-                    f"{k} {what} differs from its plain version: the kernel "
-                    f"read memory it did not write")
+    fams.append(Family(
+        "L5", "sharded_gotoh", shard_in,
+        sh.shard_buffers(mesh, *a.shape, nd, True), shards,
+        lambda: gathered(sh.fill_shards(a, b, V1, V2, p5, mesh, nd, lii, swap,
+                                        True)),
+        lambda: gathered(sh.fill_shards(a, b, V1, V2, p5, [[device]], nd, lii,
+                                        swap, True, chunk=chunk_fill_plain))))
+    return fams
 
-    plain = run(plain=True)
-    for _ in range(2):  # the allocator's segments for these launches
-        check(run(plain=False), plain, "unpoisoned")
-    seen = []
-    for byte in (0xA5, 0x5A):
-        written = poison_free(device, byte)
-        seg0 = torch.cuda.memory_stats(device)["segment.all.allocated"]
-        got = run(plain=False)
-        seg1 = torch.cuda.memory_stats(device)["segment.all.allocated"]
-        require(seg1 == seg0, f"the run after poisoning with {byte:#04x} "
-                f"allocated {seg1 - seg0} new segments: not all of its "
-                f"memory was poisoned")
-        check(got, plain, f"after poisoning with {byte:#04x}")
-        seen.append(written)
-    wall = time.perf_counter() - t_start
-    print(f"poisoned memory: {len(plain)} outputs of {len(KERNELS)} kernels "
-          f"(Gotoh fill and traceback with a cluster job, the single-problem "
-          f"entry, the DAG fill and traceback with a job in global scratch, "
-          f"L3, L4, L5 over 2 shards) bit-equal to their plain versions "
-          f"after the allocator's free memory was filled with 0xa5 "
-          f"({seen[0]['large']} B large pool, {seen[0]['small']} B small) "
-          f"and with 0x5a ({seen[1]['large']} B, {seen[1]['small']} B), no "
-          f"new segment in either run; wall {wall:.3f} s ({card})",
-          flush=True)
+
+def finish(device, what):
+    """Wait for the work queued on `device`'s current stream, raising
+    LaunchTimeout after LAUNCH_TIMEOUT_S (a kernel that hangs)."""
+    import torch
+    if device.type != "cuda":
+        return
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    t_end = time.monotonic() + LAUNCH_TIMEOUT_S
+    while not done.query():
+        if time.monotonic() > t_end:
+            raise LaunchTimeout(f"{what} has not ended after "
+                                f"{LAUNCH_TIMEOUT_S:.0f} s")
+        time.sleep(0.0005)
+
+
+def run_guarded(fam, pattern, jitter=False, what=""):
+    """One launch of `fam` with every input and buffer inside guard bands
+    of `pattern`; returns (outputs as (shape, bytes), the guard's
+    changes). Each buffer lies on the device of its group's first input."""
+    from centrolign_tpu_torch.ops import guard
+    g = guard.Guard(pattern)
+    ins = {grp: {k: g.input(f"{fam.name} {grp} {k}", x)
+                 for k, x in d.items()}
+           for grp, d in fam.inputs.items()}
+    devs = {grp: next(iter(d.values())).device
+            for grp, d in fam.inputs.items()}
+    first = next(iter(devs.values()))
+    bufs = {grp: g.buffers(specs, devs.get(grp, first), f"{fam.name} {grp} ")
+            for grp, specs in fam.specs.items()}
+    out = fam.launch(ins, bufs, jitter)
+    finish(first, f"{fam.name} {what}")
+    return {k: as_bytes(v) for k, v in out.items()}, g.check()
+
+
+def check_run(fam, out, changes, what):
+    """Raise on the first changed guard byte, input byte or output that
+    differs from the plain version's."""
+    from centrolign_tpu_torch.ops import guard
+    require(not changes, f"{fam.name}, {what}: {len(changes)} bytes of "
+            f"guard bands or inputs changed:\n{guard.report(changes)}")
+    require(out.keys() == fam.want.keys(), f"{fam.name}, {what}: outputs "
+            f"{sorted(out)}, want {sorted(fam.want)}")
+    for k in out:
+        diff = first_difference(out[k], fam.want[k])
+        require(diff is None, f"{fam.name} {k}, {what}: differs from its "
+                f"plain version: {diff}")
+
+
+def guard_bands(families, card):
+    """Phase 13: each family through its wrappers, then inside guard bands
+    of each GUARD_PATTERNS byte: every band and input unchanged, every
+    output bit-equal to the plain version's (and so across the patterns).
+    Returns the wall."""
+    from centrolign_tpu_torch.ops import guard
+    t0 = time.perf_counter()
+    for fam in families:
+        out = {k: as_bytes(v) for k, v in fam.wrapper().items()}
+        check_run(fam, out, [], "through its wrapper")
+        for pattern in GUARD_PATTERNS:
+            what = f"bands of {pattern:#04x}"
+            check_run(fam, *run_guarded(fam, pattern, what=what), what)
+    wall = time.perf_counter() - t0
+    print(f"guard bands: {len(families)} kernel families "
+          f"({', '.join(f.name for f in families)}) with every input, output "
+          f"and scratch tensor between bands of at least "
+          f"{guard.BAND_MIN >> 10} KiB, filled "
+          f"with {' and then '.join(f'{p:#04x}' for p in GUARD_PATTERNS)}: "
+          f"bands and inputs unchanged, outputs bit-equal to the plain "
+          f"versions; wall {wall:.3f} s ({card})", flush=True)
     return wall
+
+
+def jitter_runs(families, card):
+    """Phase 14: each family on the jitter build under every JITTER_SEEDS
+    x JITTER_MAX_NS, inside guard bands: every output bit-equal to the
+    plain version's. All of a family's runs go ahead (a race shows in some
+    of them), then the phase raises if any differed, with how many and the
+    first difference; a launch that hangs raises at once. Returns the
+    wall."""
+    from centrolign_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    for fam in families:
+        walls, failed = [], []
+        for seed in JITTER_SEEDS:
+            for max_ns in JITTER_MAX_NS:
+                _build.set_jitter(fam.library, seed, max_ns)
+                what = f"jitter seed {seed}, max {max_ns} ns"
+                t1 = time.perf_counter()
+                try:
+                    check_run(fam, *run_guarded(fam, GUARD_PATTERNS[0], True,
+                                                what), what)
+                except LaunchTimeout:
+                    raise
+                except RuntimeError as err:
+                    failed.append(str(err))
+                walls.append(time.perf_counter() - t1)
+        _build.set_jitter(fam.library, 0, 0)
+        require(not failed, f"{fam.name}: {len(failed)} of {len(walls)} "
+                f"jitter runs differ; the first: {failed[0] if failed else ''}")
+        print(f"jitter: {fam.name} on lib{fam.library}_jit, "
+              f"{len(JITTER_SEEDS)} seeds x max {JITTER_MAX_NS} ns: all "
+              f"{len(walls)} runs bit-equal to the plain version; "
+              f"{min(walls):.3f}-{max(walls):.3f} s a run ({card})",
+              flush=True)
+    return time.perf_counter() - t0
+
+
+def start_jitter_build():
+    """Build every source's jitter variant in a thread beside phase 2's
+    nvcc; finish_jitter_build waits for it and raises if it failed."""
+    import threading
+    from centrolign_tpu_torch.ops import _build
+    state = {"t0": time.perf_counter()}
+
+    def build():
+        try:
+            _build.build_jitter_libraries(SOURCES)
+        except Exception as err:  # re-raised by finish_jitter_build
+            state["error"] = err
+        state["s"] = time.perf_counter() - state["t0"]
+
+    state["thread"] = threading.Thread(target=build, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def finish_jitter_build(state):
+    state["thread"].join()
+    if "error" in state:
+        raise RuntimeError(f"the jitter build failed: {state['error']}")
+    return state["s"]
 
 
 def run_cli(argv):
@@ -1940,6 +2305,7 @@ def main() -> int:
     from centrolign_tpu_torch.ops import sharded_gotoh_cuda as shg
     t0 = time.perf_counter()
     san_build = start_sanitized_build()
+    jit_build = start_jitter_build()
     _build.build_libraries(SOURCES)
     for mod in (gc, pdc, cc, sc, shg):
         mod._lib()
@@ -1952,8 +2318,11 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
     t0 = time.perf_counter()
     san_built = finish_sanitized_build(san_build)
+    jit_s = finish_jitter_build(jit_build)
     print(f"waited {time.perf_counter() - t0:.3f} s for the sanitized "
-          f"builds", flush=True)
+          f"builds and the jitter builds (nvcc {' '.join(_build.NVCC_FLAGS)} "
+          f"{' '.join(_build.JITTER_FLAGS)} of {len(SOURCES)} sources, "
+          f"{jit_s:.3f} s)", flush=True)
 
     params = AlignmentParams(20, 80, (60, 800, 2500), (30, 5, 1))
     rng = np.random.default_rng(20261016)
@@ -2325,10 +2694,33 @@ def main() -> int:
     # 11. the sanitizer tier on the card: a child under ASan and UBSan
     # reaches the host launcher of every CUDA library
     san_wall = run_sanitizer_tier(san_built, card)
-    # 12. every kernel family on memory poisoned with two patterns
-    poison_wall = poisoned_memory(rng, params, device, card)
-    print(f"phase 11 (sanitized child) {san_wall:.3f} s, phase 12 "
-          f"(poisoned memory) {poison_wall:.3f} s ({card})", flush=True)
+    # 12-14. every kernel family (one launch each, the Gotoh fill also
+    # with a short side over 4096) and its plain version on the card
+    t0 = time.perf_counter()
+    fam_in = family_inputs(rng, params)
+    s1 = rng.integers(0, 4, 4400).astype(np.int32)
+    s2 = np.resize(s1, 4200).astype(np.int32)
+    s2[rng.integers(0, 4200, 420)] = rng.integers(0, 4)
+    require(min(len(s1), len(s2)) > 4096, "phase 13's Gotoh job has a short "
+            "side of 4096 or less")
+    families = guard_families(fam_in, params, device,
+                              big=(s1, s2, False, params))
+    plain_s = time.perf_counter() - t0
+    # 12. on memory poisoned with two patterns
+    poison_wall = poisoned_memory(families, fam_in["single"], device, card)
+    # 13. inside guard bands; 14. on the jitter build
+    if torch.cuda.device_count() < 2:
+        print("L5 of phases 13-14: both shards on the one card, so no halo "
+              "slot is copied in (no 'in' tensor); its 'out' slots are "
+              "guarded", flush=True)
+    guard_wall = guard_bands(families, card)
+    jitter_wall = jitter_runs(families, card)
+    print(f"phase 11 (sanitized child) {san_wall:.3f} s, the plain versions "
+          f"of phases 12-14 {plain_s:.3f} s, phase 12 (poisoned memory) "
+          f"{poison_wall:.3f} s, phase 13 (guard bands) {guard_wall:.3f} s, "
+          f"phase 14 (jitter) {jitter_wall:.3f} s; phases 12-14 "
+          f"{plain_s + poison_wall + guard_wall + jitter_wall:.3f} s "
+          f"({card})", flush=True)
 
     # the end: no jax, nothing of the JAX package, in this process or in
     # any worker or rank
@@ -2369,4 +2761,10 @@ def main() -> int:
 if __name__ == "__main__":
     modes = {"--build-sanitized": build_sanitized,
              "--sanitized-child": sanitized_child}
-    sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())
+    try:
+        rc = modes[sys.argv[1]]() if sys.argv[1:] else main()
+    except LaunchTimeout as err:
+        # a kernel still runs: leave without waiting for the card
+        print(f"error: {err}", file=sys.stderr, flush=True)
+        os._exit(1)
+    sys.exit(rc)

@@ -325,3 +325,72 @@ def test_device_memory_usage_without_a_card():
         pytest.skip("a card is present")
     from centrolign_tpu_torch.utils.memory import device_memory_usage
     assert device_memory_usage() == -1
+
+
+# Options of the CLI (cli.py, build_argparser) held against the JAX CLI one
+# at a time: the output and every side file byte-equal. "{dir}" is the run's
+# own directory (side files), "{cfg}" a config that -G wrote, naming the
+# FASTA (a config overrides every other argument) with the partition off
+# (as -u), logging off and max_count lowered, so a config that is not read
+# shows.
+_OPTION_CASES = {
+    "all-pairs": ["-u", "-A", "{dir}/ap"],
+    "g0": ["-g", "0"],
+    "g1": ["-g", "1"],
+    "u-g1": ["-u", "-g", "1"],
+    "max-count": ["-u", "-m", "10"],
+    "count-power": ["-u", "-p", "2"],
+    "config": ["-C", "{cfg}"],
+    "skip-calibration": ["-u", "--skip-calibration"],
+    "force-gfa-output": ["-u", "--force-gfa-output"],
+}
+
+
+def _side_files(d):
+    return {name: (d / name).read_bytes() for name in sorted(os.listdir(d))}
+
+
+@pytest.mark.parametrize("case", list(_OPTION_CASES))
+def test_option_matches_jax_cli(pairs, tmp_path, case):
+    """Each option through both CLIs at once, the port with its device
+    tier on the CPU: byte-equal output and side files (-A on a 3-sequence
+    input, the others on _write_pair(.., 1))."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fasta = (_write_msa(tmp_path / "msa.fasta", 909) if case == "all-pairs"
+             else pairs[1])
+    cfg = tmp_path / "config.yaml"
+    if case == "config":
+        gen = _run_jax_cli(["-G"])
+        assert gen.returncode == 0
+        text = gen.stdout
+        for old, new in (('fasta_name: ""', f'fasta_name: "{fasta}"'),
+                         ("logging_level: 2", "logging_level: 0"),
+                         ("constraint_method: 3", "constraint_method: 0"),
+                         ("max_count: 3000", "max_count: 10")):
+            assert old in text
+            text = text.replace(old, new)
+        cfg.write_text(text)
+    dirs = {tag: tmp_path / tag for tag in ("jax", "port")}
+    for d in dirs.values():
+        d.mkdir()
+
+    def argv(tag):
+        return ["-v", "0", *(a.format(dir=dirs[tag], cfg=cfg)
+                             for a in _OPTION_CASES[case]), fasta]
+
+    with ThreadPoolExecutor(2) as pool:
+        ref = pool.submit(_run_jax_cli, argv("jax"))
+        port = pool.submit(_run_port, argv("port"),
+                           CENTROLIGN_TORCH_DEVICE="cpu",
+                           CENTROLIGN_TORCH_DEVICE_MIN_CELLS="10000")
+        ref, (r, stats) = ref.result(), port.result()
+    assert ref.returncode == 0, ref.stderr
+    assert r.returncode == 0, r.stderr
+    assert r.stdout == ref.stdout and r.stdout
+    assert _side_files(dirs["port"]) == _side_files(dirs["jax"])
+    if case == "all-pairs":
+        assert len(_side_files(dirs["jax"])) == 3
+    if case == "force-gfa-output":
+        assert r.stdout.startswith("H\t")
+    assert stats["foreign"] == []

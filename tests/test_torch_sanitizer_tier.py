@@ -130,8 +130,10 @@ def test_nvcc_switch_selects_the_sanitized_build(compilers, monkeypatch):
     _build.build_libraries(["gotoh"])
     (plain,), (san,) = compilers["cmds"][:1], compilers["cmds"][1:]
     src = os.path.join(_build.CSRC, "gotoh.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    # named by the source and the header it includes
+    with open(src, "rb") as f, \
+            open(os.path.join(_build.CSRC, "jitter.cuh"), "rb") as h:
+        digest = hashlib.sha256(f.read() + h.read()).hexdigest()[:16]
     lib = os.path.join(_build.BUILD_DIR, f"libgotoh-{digest}.so")
     lib_san = os.path.join(_build.BUILD_DIR, f"libgotoh_san-{digest}.so")
     tmp = f".{os.getpid()}.tmp"
