@@ -2,6 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (centrolign_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mbpair-chaining
+    python3 chip_smoke.py --ten
+
+The first runs phases 1-15 below, in 1,200 s; each of the others runs one
+path that does not fit beside them, in a call of its own, after its own
+build: phase 8's checks on the megabase pair of phase 15 (anchors 912,654
+for the CDQ scan, 117,948, 119,836 and 1,249,939 for the event scan; the
+plain versions take 11 minutes there on an H100), and phase 16 (8
+minutes there). Each ends with its kernels' rows of the kernel table and
+the card's name and power limit.
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 1. environment: torch and CUDA versions, the card's name and power limit;
@@ -15,8 +25,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    covering npw 1-3, both lane orientations, swap_pref both, more than 8
    jobs in one launch, the fill's edge widths (short sides 0-5, 31-33,
    63/65, 127-129, 255-257), jobs split over a cluster beside jobs of one
-   block, the 4356 x 3330 gap, short sides over 4096 and penalties large
-   enough for the fill's exact (unscaled) arithmetic: bit-equal
+   block, the 4356 x 3330 gap, short sides over 4096, long sides over the
+   16,384 labels the fill stages (1,000 x 20,000 both ways) and penalties
+   large enough for the fill's exact (unscaled) arithmetic: bit-equal
    backpointers, scores and traceback rows (tolerance: exact, integer DP);
 3b. the DAG x DAG kernels against their plain versions on a bag covering
    in-degree up to 4 and span up to 32 on both sides, npw 1-3, several
@@ -65,7 +76,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the card's end), the gather of scores and backpointers to the host and
    the host traceback;
 5. the MSA path: the port's CLI on benchdata/five.fasta with five.nwk and
-   CENTROLIGN_TORCH_DEVICE_DAG=1; the GFA must equal benchdata/ref_five.gfa
+   CENTROLIGN_TORCH_DEVICE_DAG=1 at -v 3 (its wall split by stage from the
+   CLI's log, as in phase 15); the GFA must equal benchdata/ref_five.gfa
    byte for byte, all four kernels must have launched, the DAG tier must
    have taken 12 jobs of 2,731,723 cells and the chain tier 88 jobs of
    21,645,992 cells; then the DAG kernels and the Gotoh kernels are held
@@ -94,8 +106,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    145,331 anchors and the event scan 3 times over 24,025, 22,506 and
    145,331; the CDQ values must be bit-equal to the native engine's (bp
    where untied) and the free-gap chains identical to the native parity
-   engine's; each kernel is timed at the path's problems and held against
-   its plain version there (bit-equal), with its levels, mean and max
+   engine's, and the wall's stage split; each kernel is timed at the
+   path's problems, and the timed launches' outputs are held bit for bit
+   against the path's own launch, against the plain version and (the CDQ
+   scan's) against the native engine, with its levels, mean and max
    queries a level, grid barriers, the host schedule's ms and the time a
    level, beside the native engines' time, its bound (the work the
    function needs: the native CDQ engine's O(N log^2 N) steps, a
@@ -114,7 +128,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ASan and UBSan), started in phase 2 beside its nvcc and waited for
    before phase 3, with their seconds, and the ptxas reports kept beside
    each library equal to the plain build's for all five sources; then a child
-   process with the sanitizer runtimes preloaded (ASAN_OPTIONS below) runs
+   process with the sanitizer runtimes preloaded (ASAN_OPTIONS below),
+   which runs beside phases 12-14 and is waited for after them, runs
    pair.fasta with device chaining and through two shards of the card and
    three DAG jobs against the sanitized native popoa: no ASan or UBSan
    report, exit 0, both CIGARs the reference's, all five CUDA libraries
@@ -143,10 +158,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    launches) under 64 seeds x largest sleeps of 200 and 2,000 ns, inside
    guard bands: every output bit-equal to the plain version's; a launch
    that does not end within 60 s (a spin that deadlocks) ends the run;
+15. the megabase pair (tests/torch_ref/mbpair.fasta.gz, 1.1 Mbp a
+   sequence, unpacked and its sha256 checked) through the CLI at -v 3: the
+   CIGAR must equal tests/torch_ref/ref_mbpair.cigar.txt (the JAX CLI's),
+   both Gotoh kernels must have launched and the chain tier taken 218
+   gaps of 86,385,989 cells; it prints the wall, the peak device memory,
+   each dispatch's jobs, cells and largest job, each fill launch's plan
+   (clusters, jobs of one block), the host aligners' counters and the
+   wall's stage split from the CLI's log; the Gotoh kernels are held and
+   timed against their plain versions on every dispatch, with their
+   bound (with device chaining it runs in --mbpair-chaining);
+16. (--ten) ten.fasta + ten.nwk through the CLI at -v 3 with
+   CENTROLIGN_TORCH_DEVICE_DAG=1: the GFA must equal
+   tests/torch_ref/ref_ten.gfa (the JAX CLI's), all four kernels must have
+   launched and both device tiers taken the recorded jobs and cells; it
+   prints the DAG jobs (count, shapes, the largest, those in global
+   scratch, the gaps past the tier's envelope), each chain dispatch and
+   fill launch plan, the wall, the peak device memory and the stage split
+   of every subproblem; both DAG kernels are held and timed against their
+   plain versions on every DAG launch, with its longest job (the most
+   diagonals) and the time per diagonal step;
 and at the end neither jax nor any module of the JAX package may be in the
 process, nor in any worker or rank. Each path runs with the launch counters set to 0 just before it
-and read just after. The last three lines of standard output are the
-kernel table, the card's name and power limit, and {"ok": true, ...}.
+and read just after. The last lines of standard output are the run's
+seconds, the kernel table, the card's name and power limit, and
+{"ok": true, ...}.
 """
 
 import atexit
@@ -154,6 +190,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -165,6 +202,16 @@ REF_CIGAR = os.path.join(BENCH, "ref_pair.cigar.txt")
 FIVE = os.path.join(BENCH, "five.fasta")
 FIVE_TREE = os.path.join(BENCH, "five.nwk")
 REF_GFA = os.path.join(BENCH, "ref_five.gfa")
+TEN = os.path.join(BENCH, "ten.fasta")
+TEN_TREE = os.path.join(BENCH, "ten.nwk")
+# the users' sizes (phases 15-16): a simulated 1.1 Mbp centromere pair,
+# with its recipe and sha256, and the JAX CLI's outputs on it and on
+# ten.fasta + ten.nwk
+TORCH_REF = os.path.join(HERE, "tests", "torch_ref")
+MBPAIR_GZ = os.path.join(TORCH_REF, "mbpair.fasta.gz")
+MBPAIR_JSON = os.path.join(TORCH_REF, "mbpair.json")
+REF_MBPAIR_CIGAR = os.path.join(TORCH_REF, "ref_mbpair.cigar.txt")
+REF_TEN_GFA = os.path.join(TORCH_REF, "ref_ten.gfa")
 GOTOH_SRC = "centrolign_tpu_torch/csrc/gotoh.cu"
 DAG_SRC = "centrolign_tpu_torch/csrc/popoa_dag.cu"
 CDQ_SRC = "centrolign_tpu_torch/csrc/chain_cdq.cu"
@@ -197,6 +244,14 @@ FIVE_CHAIN_JOBS, FIVE_CHAIN_CELLS = 88, 21_645_992
 CHAINING = {"CENTROLIGN_TPU_DEVICE_CDQ": "1", "CENTROLIGN_TPU_DEVICE_CHAIN": "1"}
 PAIR_CDQ_ANCHORS = (145_331,)
 PAIR_SCAN_ANCHORS = (24_025, 22_506, 145_331)
+# the megabase pair's chain tier; with device chaining (--mbpair-chaining)
+# its CDQ value pass and the free-gap chains of the two calibrations and of
+# the pair; ten.fasta's two device tiers with the DAG tier on
+MBPAIR_GAPS, MBPAIR_CELLS = 218, 86_385_989
+MBPAIR_CDQ_ANCHORS = (912_654,)
+MBPAIR_SCAN_ANCHORS = (117_948, 119_836, 1_249_939)
+TEN_DAG_JOBS, TEN_DAG_CELLS = 46, 12_849_771
+TEN_CHAIN_JOBS, TEN_CHAIN_CELLS = 174, 59_023_064
 # H100 SXM peaks for the bound: 3.35 TB/s of HBM; int32 on the CUDA cores
 # at 64 lanes per SM x 132 SMs x 1,980 MHz (one operation per lane per
 # clock; the tensor cores' int8 rate does not apply to these kernels)
@@ -305,6 +360,9 @@ def make_bag(rng, params):
     s1, s2, _, _ = job(500, 460, False, 3, gen)
     bag.append((s1, s2, True, AlignmentParams(
         2000, 8000, (6000, 80000, 250000), (3000, 500, 100))))
+    # a long side past the labels the fill stages in shared memory
+    # (STAGE_LABELS; the rest it reads from device memory), both ways
+    bag += [job(1000, 20000, False, 3, gen), job(20000, 1000, True, 2, gen)]
     return bag
 
 
@@ -744,19 +802,25 @@ def level_stats(sizes):
             int(sizes.max()) if len(sizes) else 0)
 
 
-def max_err(got, want):
-    """Max |difference| over matching outputs; raises unless they are equal
-    bit for bit."""
+def same_outputs(got, want, what):
+    """Raise unless each tensor of `got` equals its match in `want` bit for
+    bit, naming `what` and the largest |difference|."""
     import torch
     err = 0.0
-    for a, b in zip(got, want):
+    for a, b in zip(got, want, strict=True):
         a, b = a.cpu(), b.cpu()
         if a.numel():
             err = max(err, float((a.double() - b.double()).abs().max()))
         same = (torch.equal(a.view(torch.int32), b.view(torch.int32))
                 if a.dtype == torch.float32 else torch.equal(a, b))
-        require(same, f"kernel disagrees with its plain version: {err}")
+        require(same, f"{what} disagree: {err}")
     return err
+
+
+def max_err(got, want):
+    """Max |difference| over matching outputs; raises unless they are equal
+    bit for bit."""
+    return same_outputs(got, want, "the kernel and its plain version")
 
 
 def compare_cdq(problems, device, reps, full=False):
@@ -909,13 +973,47 @@ def chaining_bag(rng, device, card, errs):
     return out
 
 
-def run_chaining_path(device, card, table, errs):
-    """Phase 8: pair.fasta through the CLI with both device-chaining
-    switches. Checks the CIGAR, the launches and anchors of both kernels,
-    the CDQ values against the native engine and the free-gap chains
-    against the native parity engine, then times each kernel at the path's
-    problems and holds it against its plain version there. Returns the
-    counts of the path's run."""
+def check_native_cdq(nat, out, what):
+    """Raise unless the CDQ outputs `out` (dp, bp, tie, struct, stored,
+    qshift in anchor-id order) equal the native engine's `nat`, bp where
+    no tie; returns the untied anchors."""
+    import numpy as np
+    untied = nat[2] == 0
+    require(all(np.array_equal(nat[k], out[k]) for k in (0, 2, 3, 4, 5))
+            and np.array_equal(nat[1][untied], out[1][untied]),
+            f"{what}: the CDQ scan's values differ from the native engine's")
+    return int(untied.sum())
+
+
+@contextlib.contextmanager
+def keeping_outputs(mod, name):
+    """`mod.name` (a kernel's wrapper) wrapped to keep a host copy of each
+    call's outputs: yields the list of them."""
+    kept, fn = [], getattr(mod, name)
+
+    def keep(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        kept.append(tuple(o.cpu() for o in out))
+        return out
+
+    setattr(mod, name, keep)
+    try:
+        yield kept
+    finally:
+        setattr(mod, name, fn)
+
+
+def run_chaining_path(device, card, table, errs, fasta, ref, label,
+                      cdq_anchors, scan_anchors):
+    """Phase 8 on pair.fasta (and --mbpair-chaining on the megabase pair):
+    `fasta` through the CLI with both device-chaining switches. Checks the
+    CIGAR against `ref`, each kernel's launches over `cdq_anchors` and
+    `scan_anchors` (each launch's anchors), the CDQ values against the
+    native engine and the free-gap chains against the native parity
+    engine. Then it times each kernel at the path's problems (3 runs after
+    one warm-up) and holds the timed launches' outputs bit for bit against
+    the path's own launch, against its plain version and, for the CDQ scan,
+    against the native engine. Returns the counts of the path's run."""
     import copy
     import numpy as np
     import torch
@@ -960,83 +1058,43 @@ def run_chaining_path(device, card, table, errs):
     chain_scan.sparse_chain_scan = recording_scan
     anchorer_mod.Anchorer._chain_parity = recording_parity
     os.environ.update(CHAINING)
+    log = io.StringIO()
     try:
-        reset_counts()
-        rc, out, wall = run_cli(["-v", "0", PAIR])
-        got = counts()
+        with keeping_outputs(cc, "cdq_scan") as cdq_out, \
+                keeping_outputs(sc, "event_scan") as scan_out:
+            reset_counts()
+            rc, out, wall = run_cli(["-v", "3", fasta], log)
+            got = counts()
     finally:
         chain_cdq.chain_cdq_device = cdq_entry
         chain_scan.sparse_chain_scan = scan_entry
         anchorer_mod.Anchorer._chain_parity = parity
         for k in CHAINING:
             os.environ.pop(k)
-    require(rc == 0, f"cli.main returned {rc} on pair.fasta with device "
-            "chaining")
-    with open(REF_CIGAR) as f:
-        require(out == f.read(), "pair.fasta CIGAR with device chaining "
-                "differs from benchdata/ref_pair.cigar.txt")
+    require(rc == 0, f"cli.main returned {rc} on {label} with device "
+            f"chaining: {log.getvalue()[-2000:]}")
+    same_bytes(out, ref, f"{label}'s CIGAR with device chaining")
     cdq_sizes = tuple(len(a[0]) for a, _ in cdq_calls)
     scan_sizes = tuple(len(a[4]) for a in scan_calls)
-    require(got["chain_cdq_scan"] == len(PAIR_CDQ_ANCHORS)
-            and cdq_sizes == PAIR_CDQ_ANCHORS
-            and got["cdq_anchors"] == sum(PAIR_CDQ_ANCHORS),
+    require(got["chain_cdq_scan"] == len(cdq_out) == len(cdq_sizes)
+            and got["cdq_anchors"] == sum(cdq_sizes)
+            and cdq_sizes == cdq_anchors,
             f"CDQ scan: {got['chain_cdq_scan']} launches over {cdq_sizes}, "
-            f"want {len(PAIR_CDQ_ANCHORS)} over {PAIR_CDQ_ANCHORS}")
-    require(got["chain_scan_event"] == len(PAIR_SCAN_ANCHORS)
-            and scan_sizes == PAIR_SCAN_ANCHORS
-            and got["scan_anchors"] == sum(PAIR_SCAN_ANCHORS),
+            f"want {cdq_anchors}")
+    require(got["chain_scan_event"] == len(scan_out) == len(scan_sizes)
+            and got["scan_anchors"] == sum(scan_sizes)
+            and scan_sizes == scan_anchors,
             f"event scan: {got['chain_scan_event']} launches over "
-            f"{scan_sizes}, want {len(PAIR_SCAN_ANCHORS)} over "
-            f"{PAIR_SCAN_ANCHORS}")
-    print(f"pair.fasta with device chaining: CIGAR byte-identical to the "
+            f"{scan_sizes}, want {scan_anchors}")
+    print(f"{label} with device chaining: CIGAR byte-identical to the "
           f"reference; wall {wall:.3f} s; chain_cdq_scan {got['chain_cdq_scan']}"
           f" launch over {cdq_sizes} anchors, chain_scan_event "
           f"{got['chain_scan_event']} launches over {scan_sizes} anchors; "
           f"launches {json.dumps(got)} ({card})", flush=True)
+    print_stages(f"{label} with device chaining", stage_split(log.getvalue()),
+                 card)
 
-    # the CDQ values against the native engine, at full size
-    for args, dev_out in cdq_calls:
-        nat, nat_ms = wall_ms(lambda: chain_affine_cdq(*args))
-        dp, bp, tie, strct, stored, qs = dev_out
-        untied = nat[2] == 0
-        require(all(np.array_equal(a, b) for a, b in zip(
-            (nat[0], nat[2], nat[3], nat[4], nat[5]),
-            (dp, tie, strct, stored, qs)))
-            and np.array_equal(nat[1][untied], bp[untied]),
-            "the CDQ scan's values differ from the native engine's")
-        n = len(args[0])
-        _, arrays = chain_cdq.pack([args], n)
-        # the host schedule alone, on the sorted rows pack made it from
-        t0 = time.perf_counter()
-        chain_cdq.level_steps(0, arrays[1][0, :, 0], arrays[0][0, :, 0])
-        sched_ms = (time.perf_counter() - t0) * 1e3
-        t = [torch.from_numpy(a).to(device) for a in arrays]
-        res, ms = timed(lambda: cc.cdq_scan(*t, anchors=n), 3)
-        want, pms = wall_ms(lambda: chain_cdq.cdq_scan_plain(*t))
-        errs["chain_cdq_scan"] = max(errs["chain_cdq_scan"],
-                                     max_err(res, want))
-        work, design = Work(), Work()
-        barriers = cdq_work([args], arrays, work, design, blocks)
-        table["chain_cdq_scan"]["work"].add(work.ops, work.bytes)
-        table["chain_cdq_scan"]["design"].add(design.ops, design.bytes)
-        table["chain_cdq_scan"]["ms"] += ms
-        table["chain_cdq_scan"]["plain_ms"] += pms
-        lv = arrays[6]
-        n_lv, mean_q, max_q = level_stats(lv[:, 2] - lv[:, 1])
-        print(f"chain_cdq_scan on pair.fasta's {n} anchors (prefix "
-              f"{int(arrays[5][0])}): dp, tie, struct, stored bit-equal to "
-              f"native, bp equal on the {int(untied.sum())} untied; "
-              f"{n_lv} levels, {mean_q:.1f} queries a level on average, "
-              f"{max_q} at most, {barriers} grid barriers; host schedule "
-              f"{sched_ms:.3f} ms; kernel {ms:.3f} ms ({ms / n_lv * 1e3:.3f} "
-              f"us a level); native engine {nat_ms:.3f} ms; plain "
-              f"{pms:.1f} ms (bit-equal); bound {work.bound()[0]:.6f} ms "
-              f"({work.bound()[1]}), the design's {design.bound()[0]:.6f} "
-              f"ms ({design.bytes} bytes, {design.ops} operations) "
-              f"({card})", flush=True)
-
-    # the free-gap chains against the native parity engine, and the
-    # event scan alone on each problem
+    # the free-gap chains against the native parity engine
     for self_, kept, args, chain, dev_s in sparse_calls:
         t0 = time.perf_counter()
         native = parity(self_, kept, *args)
@@ -1051,7 +1109,9 @@ def run_chaining_path(device, card, table, errs):
               f"native parity engine's; device chaining {dev_s * 1e3:.3f} "
               f"ms, native {nat_s * 1e3:.3f} ms (host wall) ({card})",
               flush=True)
-    for args in scan_calls:
+
+    # the event scan on each of the path's problems
+    for args, path_out in zip(scan_calls, scan_out):
         n = len(args[4])
         _, _, ev_np, dp0_np, levels_np = chain_scan.build_events(*args[:6])
         t0 = time.perf_counter()
@@ -1061,6 +1121,8 @@ def run_chaining_path(device, card, table, errs):
         dp0 = torch.from_numpy(dp0_np).to(device)
         levels = tuple(torch.from_numpy(a).to(device) for a in levels_np)
         res, ms = timed(lambda: sc.event_scan(ev, dp0, levels, anchors=n), 3)
+        same_outputs(res, path_out, f"the event scan's timed launches on {n} "
+                     f"anchors and the path's launch")
         want, pms = wall_ms(lambda: chain_scan.event_scan_plain(ev, dp0))
         errs["chain_scan_event"] = max(errs["chain_scan_event"],
                                        max_err(res, want))
@@ -1073,14 +1135,65 @@ def run_chaining_path(device, card, table, errs):
         steps = levels_np[0]
         n_lv, mean_q, max_q = level_stats(steps[:, 1] - steps[:, 0])
         print(f"chain_scan_event on {n} anchors ({len(ev_np)} events): "
-              f"{n_lv} levels, {mean_q:.1f} queries a level on average, "
-              f"{max_q} at most, {barriers} grid barriers; host schedule "
-              f"{sched_ms:.3f} ms; kernel {ms:.3f} ms "
+              f"the timed launches bit-equal to the path's and to the plain "
+              f"version; {n_lv} levels, {mean_q:.1f} queries a level on "
+              f"average, {max_q} at most, {barriers} grid barriers; host "
+              f"schedule {sched_ms:.3f} ms; kernel {ms:.3f} ms "
               f"({ms / max(n_lv, 1) * 1e3:.3f} us a level); plain "
-              f"{pms:.1f} ms (bit-equal); bound {work.bound()[0]:.6f} ms "
+              f"{pms:.1f} ms; bound {work.bound()[0]:.6f} ms "
               f"({work.bound()[1]}), the design's {design.bound()[0]:.6f} "
               f"ms ({design.bytes} bytes, {design.ops} operations) "
               f"({card})", flush=True)
+
+    # the CDQ scan on each of the path's problems, at full size
+    for (args, dev_out), path_out in zip(cdq_calls, cdq_out):
+        nat, nat_ms = wall_ms(lambda: chain_affine_cdq(*args))
+        untied = check_native_cdq(nat, dev_out, f"{label}'s path")
+        n = len(args[0])
+        orders, arrays = chain_cdq.pack([args], n)
+        # the host schedule alone, on the sorted rows pack made it from
+        t0 = time.perf_counter()
+        chain_cdq.level_steps(0, arrays[1][0, :, 0], arrays[0][0, :, 0])
+        sched_ms = (time.perf_counter() - t0) * 1e3
+        t = [torch.from_numpy(a).to(device) for a in arrays]
+        res, ms = timed(lambda: cc.cdq_scan(*t, anchors=n), 3)
+        same_outputs(res, path_out, f"the CDQ scan's timed launches on {n} "
+                     f"anchors and the path's launch")
+        check_native_cdq(nat, (*chain_cdq._unsort(
+            orders[0], n, *(o[0].cpu().numpy() for o in res)), dev_out[5]),
+            "the timed launches")
+        want, pms = wall_ms(lambda: chain_cdq.cdq_scan_plain(*t))
+        errs["chain_cdq_scan"] = max(errs["chain_cdq_scan"],
+                                     max_err(res, want))
+        work, design = Work(), Work()
+        barriers = cdq_work([args], arrays, work, design, blocks)
+        table["chain_cdq_scan"]["work"].add(work.ops, work.bytes)
+        table["chain_cdq_scan"]["design"].add(design.ops, design.bytes)
+        table["chain_cdq_scan"]["ms"] += ms
+        table["chain_cdq_scan"]["plain_ms"] += pms
+        lv = arrays[6]
+        n_lv, mean_q, max_q = level_stats(lv[:, 2] - lv[:, 1])
+        print(f"chain_cdq_scan on {label}'s {n} anchors (prefix "
+              f"{int(arrays[5][0])}): the path's and the timed launches' "
+              f"dp, tie, struct, stored bit-equal to native, bp equal on "
+              f"the {untied} untied; the timed launches bit-equal to the "
+              f"path's and to the plain version; {n_lv} levels, "
+              f"{mean_q:.1f} queries a level on average, {max_q} at most, "
+              f"{barriers} grid barriers; host schedule {sched_ms:.3f} ms; "
+              f"kernel {ms:.3f} ms ({ms / n_lv * 1e3:.3f} us a level); "
+              f"native engine {nat_ms:.3f} ms; plain {pms:.1f} ms; bound "
+              f"{work.bound()[0]:.6f} ms ({work.bound()[1]}), the design's "
+              f"{design.bound()[0]:.6f} ms ({design.bytes} bytes, "
+              f"{design.ops} operations) ({card})", flush=True)
+
+    for name in ("chain_cdq_scan", "chain_scan_event"):
+        k = table[name]
+        print(f"{label} chaining problems, {name}: kernel {k['ms']:.3f} ms "
+              f"over {got[name]} launches, plain {k['plain_ms']:.1f} ms, "
+              f"bound {k['work'].bound()[0]:.6f} ms ({k['work'].bound()[1]}; "
+              f"the function's work), {k['design'].bound()[0]:.6f} ms "
+              f"({k['design'].bound()[1]}; this design's work), library "
+              f"none ({card})", flush=True)
     return got
 
 
@@ -1355,10 +1468,8 @@ def run_shard_tier(device, card, table, errs):
         os.environ.pop("CENTROLIGN_TORCH_SHARD_DEVICES")
     require(rc == 0, f"cli.main returned {rc} on pair.fasta with the "
             "sequence-parallel tier")
-    with open(REF_CIGAR) as f:
-        require(out == f.read(), "pair.fasta CIGAR through the "
-                "sequence-parallel tier differs from "
-                "benchdata/ref_pair.cigar.txt")
+    same_bytes(out, REF_CIGAR,
+               "pair.fasta's CIGAR through the sequence-parallel tier")
     posh = metrics.counters.get("posh", [0, 0, 0.0])
     require(posh[0] == PAIR_SHARD_GAPS and len(calls) == PAIR_SHARD_GAPS
             and got["sharded_gotoh_fill"] > 0,
@@ -1425,10 +1536,7 @@ def run_executors(device, card, serial_wall, serial_gfa):
     from centrolign_tpu_torch.parallel import multiprocess as mp_mod
     from centrolign_tpu_torch.parallel import scheduler
 
-    with open(REF_GFA) as f:
-        ref = f.read()
-    require(serial_gfa == ref, "the serial five.fasta GFA is not the "
-            "reference")
+    same_bytes(serial_gfa, REF_GFA, "the serial five.fasta GFA")
     argv = ["-v", "0", "--hosts", "2", "-T", FIVE_TREE, FIVE]
     kernels = ("gotoh_cuda.FILL_LAUNCHES", "gotoh_cuda.TRACEBACK_LAUNCHES")
 
@@ -1439,8 +1547,8 @@ def run_executors(device, card, serial_wall, serial_gfa):
     reset_counts()
     rc, out, wall = run_cli(argv)
     got = counts()
-    require(rc == 0 and out == ref, "five.fasta with --hosts 2 (pool) gave "
-            "another GFA than benchdata/ref_five.gfa")
+    require(rc == 0, f"cli.main returned {rc} on five.fasta with --hosts 2")
+    same_bytes(out, REF_GFA, "five.fasta's GFA with --hosts 2 (pool)")
     workers = {k: pcounters.MERGED.get(k, 0) for k in kernels}
     require(scheduler.RECOVERED == recovered,
             "a pool worker failed and was recomputed in the parent")
@@ -1473,8 +1581,8 @@ def run_executors(device, card, serial_wall, serial_gfa):
     finally:
         mp_mod.run_multiprocess_msa = run_mp
         os.environ.pop("CENTROLIGN_TPU_EXECUTOR")
-    require(rc == 0 and out == ref, "five.fasta with jaxdist over 2 ranks "
-            "gave another GFA than benchdata/ref_five.gfa")
+    require(rc == 0, f"cli.main returned {rc} on five.fasta with jaxdist")
+    same_bytes(out, REF_GFA, "five.fasta's GFA with jaxdist over 2 ranks")
     require(len(ranks) == 2 and all(r["device"] == str(device)
                                     for r in ranks),
             f"the ranks ran on {[r['device'] for r in ranks]}")
@@ -1487,6 +1595,273 @@ def run_executors(device, card, serial_wall, serial_gfa):
           f"{json.dumps(per_rank)}, this process's launches "
           f"{json.dumps(got)} ({card})",
           flush=True)
+
+
+def same_bytes(out, ref, what):
+    """Raise unless `out` equals the file `ref`, naming the first byte
+    that differs."""
+    with open(ref) as f:
+        want = f.read()
+    if out == want:
+        return
+    k = next((i for i, (a, b) in enumerate(zip(out, want)) if a != b),
+             min(len(out), len(want)))
+    raise RuntimeError(f"{what} differs from {os.path.relpath(ref, HERE)} "
+                       f"at byte {k} (lengths {len(out)} and {len(want)}): "
+                       f"{out[max(k - 40, 0):k + 80]!r} against "
+                       f"{want[max(k - 40, 0):k + 80]!r}")
+
+
+def unpack_mbpair(tmp):
+    """tests/torch_ref/mbpair.fasta.gz unpacked into the directory `tmp`,
+    its sha256 checked against mbpair.json's: (path, the recipe)."""
+    import gzip
+    import hashlib
+    with open(MBPAIR_JSON) as f:
+        meta = json.load(f)
+    with gzip.open(MBPAIR_GZ, "rb") as f:
+        data = f.read()
+    digest = hashlib.sha256(data).hexdigest()
+    require(digest == meta["sha256"], f"mbpair.fasta.gz unpacks to sha256 "
+            f"{digest}, want {meta['sha256']}")
+    path = os.path.join(tmp, "mbpair.fasta")
+    with open(path, "wb") as f:
+        f.write(data)
+    return path, meta
+
+
+def print_dispatches(label, dispatched, card):
+    """Each chain dispatch of a run: its jobs, cells and largest job, and
+    each of its fill launches' plan (gotoh_cuda.fill_plan): clusters of
+    split jobs, jobs of one block and how many of those are wider than
+    CLUSTER_MIN_LANES lanes."""
+    from centrolign_tpu_torch.ops import gotoh_cuda as gc
+
+    for k, jobs in enumerate(dispatched):
+        shapes = [(len(j[0]), len(j[1])) for j in jobs]
+        cells = [(a + 1) * (b + 1) for a, b in shapes]
+        big = shapes[max(range(len(shapes)), key=cells.__getitem__)]
+        wide = sum(min(a, b) + 1 > gc.CLUSTER_MIN_LANES for a, b in shapes)
+        print(f"{label} dispatch {k + 1}: {len(jobs)} jobs, {sum(cells)} "
+              f"cells, largest {big[0]} x {big[1]} ({max(cells)} cells), "
+              f"longest side {max(max(s_) for s_ in shapes)}, {wide} jobs "
+              f"over {gc.CLUSTER_MIN_LANES} lanes; shapes "
+              f"{json.dumps(shapes)}", flush=True)
+        for part in gc._split_launches(jobs):
+            plan = gc.launch_sizes(part)[1]
+            rows = plan.blocks[plan.blocks[:, 0] >= 0]
+            split = sorted({int(r[0]) for r in rows if r[2] > 1})
+            single = [int(r[0]) for r in rows if r[2] == 1]
+            wide1 = sum(min(len(part[j][0]), len(part[j][1])) + 1
+                        > gc.CLUSTER_MIN_LANES for j in single)
+            print(f"  fill launch of {len(part)} jobs: C = {plan.cluster}, "
+                  f"{len(split)} jobs split over a cluster each, "
+                  f"{len(single)} of one block ({wide1} of them over "
+                  f"{gc.CLUSTER_MIN_LANES} lanes), {len(plan.blocks)} "
+                  f"blocks of {plan.threads} threads, R = "
+                  f"{plan.lanes_per_thread}, {plan.smem} B of shared memory "
+                  f"({card})", flush=True)
+
+
+def new_table():
+    return {name: {"ms": 0.0, "plain_ms": 0.0, "work": Work(),
+                   "design": Work()} for name in KERNELS}
+
+
+def run_mbpair(device, card, errs):
+    """Phase 15: the megabase pair through the CLI on the card: the CIGAR
+    byte-identical to the JAX CLI's, the Gotoh kernels held against their
+    plain versions on every dispatch. (With device chaining it runs in
+    --mbpair-chaining.)"""
+    import tempfile
+    import torch
+    from centrolign_tpu_torch import metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta, meta = unpack_mbpair(tmp)
+        print(f"mbpair.fasta: {meta['names']} of {meta['lengths']} bp, "
+              f"sha256 {meta['sha256']} as recorded", flush=True)
+        log = io.StringIO()
+        with recording() as (dispatched, _):
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            rc, out, wall = run_cli(["-v", "3", fasta], log)
+            got = counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        require(rc == 0, f"cli.main returned {rc} on mbpair.fasta: "
+                f"{log.getvalue()[-2000:]}")
+        same_bytes(out, REF_MBPAIR_CIGAR, "mbpair.fasta's CIGAR")
+        require(got["gotoh_fill"] > 0 and got["gotoh_traceback"] > 0,
+                f"the megabase pair launched {got}")
+        pod = metrics.counters.get("pod", [0, 0, 0.0])
+        print(f"mbpair.fasta: CIGAR byte-identical to the reference; wall "
+              f"{wall:.3f} s; device tier {got['chain_jobs']} gaps, "
+              f"{pod[1]} cells in {len(dispatched)} dispatches; launches "
+              f"{json.dumps(got)}; max_memory_allocated {peak} B ({card})",
+              flush=True)
+        print("mbpair.fasta aligner counters: "
+              + json.dumps(metrics.summary()), flush=True)
+        print_dispatches("mbpair.fasta", dispatched, card)
+        print_stages("mbpair.fasta", stage_split(log.getvalue()), card)
+        require(got["chain_jobs"] == MBPAIR_GAPS and pod[1] == MBPAIR_CELLS,
+                f"device tier took {got['chain_jobs']} gaps / {pod[1]} "
+                f"cells, want {MBPAIR_GAPS} / {MBPAIR_CELLS}")
+
+        table = new_table()
+        here = compare_path_gotoh(dispatched, got["gotoh_fill"], device,
+                                  table, errs)
+        for name, (ms, pms) in here.items():
+            print(f"mbpair.fasta jobs, {name}: bit-equal, kernel {ms:.3f} "
+                  f"ms, plain {pms:.1f} ms, bound "
+                  f"{table[name]['work'].bound()[0]:.6f} ms "
+                  f"({table[name]['work'].bound()[1]}) over "
+                  f"{len(dispatched)} dispatches ({card})", flush=True)
+
+
+def run_ten(device, card, table, errs):
+    """Phase 16 (--ten): ten.fasta + ten.nwk through the CLI on the card
+    with the DAG tier on: the GFA byte-identical to the JAX CLI's, both DAG
+    kernels held against their plain versions on every DAG launch (into
+    `table`). Returns the counts of the path's run."""
+    import torch
+    from centrolign_tpu_torch import metrics
+    from centrolign_tpu_torch.ops import popoa_dag as plain_dag
+    from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
+
+    log = io.StringIO()
+    os.environ["CENTROLIGN_TORCH_DEVICE_DAG"] = "1"
+    try:
+        with recording() as (dispatched, dag_dispatched):
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            rc, out, wall = run_cli(["-v", "3", "-T", TEN_TREE, TEN], log)
+            got = counts()
+    finally:
+        os.environ.pop("CENTROLIGN_TORCH_DEVICE_DAG")
+    peak = torch.cuda.max_memory_allocated(device)
+    require(rc == 0, f"cli.main returned {rc} on ten.fasta: "
+            f"{log.getvalue()[-2000:]}")
+    same_bytes(out, REF_TEN_GFA, "ten.fasta's GFA")
+    require(all(got[k] > 0 for k in (
+        "gotoh_fill", "gotoh_traceback", "popoa_dag_fill",
+        "popoa_dag_traceback")), f"ten.fasta launched {got}")
+    summary = metrics.summary()
+    podag = metrics.counters.get("podag", [0, 0, 0.0])
+    pod = metrics.counters.get("pod", [0, 0, 0.0])
+    print(f"ten.fasta: GFA byte-identical to the reference; wall {wall:.3f} "
+          f"s; DAG tier {got['dag_jobs']} jobs, {podag[1]} cells in "
+          f"{len(dag_dispatched)} flushes; chain tier {got['chain_jobs']} "
+          f"jobs, {pod[1]} cells in {len(dispatched)} dispatches; launches "
+          f"{json.dumps(got)}; max_memory_allocated {peak} B ({card})",
+          flush=True)
+    print("ten.fasta aligner counters: " + json.dumps(summary), flush=True)
+    jobs = [j for flush in dag_dispatched for j in flush]
+    shapes = [[(j.t1.V, j.t2.V, j.t1.K, j.t2.K, j.t1.S, j.t2.S,
+                j.params.num_pw) for j in flush] for flush in dag_dispatched]
+    big = max(jobs, key=lambda j: j.t1.V * j.t2.V)
+    launches = [g for flush in dag_dispatched for g in pdc.launch_groups(flush)]
+    in_scratch = 0
+    for part in launches:
+        tab = plain_dag.job_fields(pdc.dag_job_table(part)[0])
+        in_scratch += int((tab[:, plain_dag.COL_SCRATCH_LO] != -1).sum())
+    fans = metrics.counters.get("po_dagfb", [0, 0, 0.0])
+    print(f"ten.fasta DAG jobs: {len(jobs)} in {len(launches)} launches; "
+          f"largest {big.t1.V} x {big.t2.V} (K {big.t1.K}/{big.t2.K}, S "
+          f"{big.t1.S}/{big.t2.S}); {in_scratch} with their state in global "
+          f"scratch; {fans[0]} gaps ({fans[1]} cells) past the tier's "
+          f"envelope (in-degree {plain_dag.K_MAX}, span {plain_dag.S_MAX}) "
+          f"on host po (po_dagfb); shapes (V1, V2, K1, K2, S1, S2, "
+          f"npw) of each flush {json.dumps(shapes)} ({card})", flush=True)
+    print_dispatches("ten.fasta", dispatched, card)
+    print_stages("ten.fasta", stage_split(log.getvalue()), card)
+    require((got["dag_jobs"], podag[1], got["chain_jobs"], pod[1])
+            == (TEN_DAG_JOBS, TEN_DAG_CELLS, TEN_CHAIN_JOBS, TEN_CHAIN_CELLS),
+            f"ten.fasta: DAG tier {got['dag_jobs']} jobs / {podag[1]} cells, "
+            f"chain tier {got['chain_jobs']} / {pod[1]}, want "
+            f"{TEN_DAG_JOBS} / {TEN_DAG_CELLS}, {TEN_CHAIN_JOBS} / "
+            f"{TEN_CHAIN_CELLS}")
+
+    for part in launches:
+        res, rows = compare_dag(part, device, reps=3)
+        dag_work(part, rows, table["popoa_dag_fill"]["work"],
+                 table["popoa_dag_traceback"]["work"])
+        for name, (err, ms, pms) in res.items():
+            table[name]["ms"] += ms
+            table[name]["plain_ms"] += pms
+            errs[name] = max(errs[name], err)
+        # the job of the most diagonals sets the launch's time
+        big = max(part, key=lambda j: j.t1.V + j.t2.V)
+        diags = big.t1.V + big.t2.V - 1
+        fill_ms = res["popoa_dag_fill"][1]
+        print(f"ten.fasta DAG fill launch of {len(part)} jobs: "
+              f"{fill_ms:.3f} ms; longest job {big.t1.V} x {big.t2.V} "
+              f"(K {big.t1.K}/{big.t2.K}, S {big.t1.S}/{big.t2.S}), {diags} "
+              f"diagonals, {fill_ms / diags * 1e3:.3f} us a diagonal step "
+              f"({card})", flush=True)
+    for name in ("popoa_dag_fill", "popoa_dag_traceback"):
+        k = table[name]
+        print(f"ten.fasta DAG jobs, {name}: bit-equal, kernel {k['ms']:.3f} "
+              f"ms, plain {k['plain_ms']:.1f} ms, bound "
+              f"{k['work'].bound()[0]:.6f} ms ({k['work'].bound()[1]}) over "
+              f"{len(launches)} launches ({card})", flush=True)
+    return got
+
+
+def foreign_modules():
+    """Modules of jax or of the JAX package loaded in this process."""
+    return sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith("jax.")
+                  or m == "centrolign_tpu" or m.startswith("centrolign_tpu."))
+
+
+def own_run(flag, path, names):
+    """A path of chip_smoke in a run of its own (--mbpair-chaining, --ten):
+    the checks of main's start and the build, then `path(device, card,
+    table, errs)`, which returns the path's launch counts; prints the run's
+    seconds, the rows of the kernel table for `names` and the card's name
+    and power limit."""
+    t0 = time.perf_counter()
+    if not os.path.isdir(os.path.join(HERE, "centrolign_tpu_torch")):
+        print("error: run chip_smoke.py from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    device = torch.device("cuda", 0)
+    # the caching allocator starts with the first tensor; a path may reset
+    # its peak statistics first
+    torch.empty(1, device=device)
+    from centrolign_tpu_torch.ops import _build
+    _build.build_libraries(SOURCES)
+    os.environ["CENTROLIGN_TORCH_DEVICE"] = "cuda"
+    errs = {name: 0 for name in KERNELS}
+    table = new_table()
+    got = path(device, card, table, errs)
+    require(not foreign_modules(), f"modules of jax or the JAX package "
+            f"were imported: {foreign_modules()[:5]}")
+    print(f"{flag} ran {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": [
+        kernel_row(name, table[name], got[name], errs[name])
+        for name in names]}))
+    print(card)
+    return 0
+
+
+def mbpair_chaining(device, card, table, errs):
+    """--mbpair-chaining: the megabase pair with device chaining
+    (run_chaining_path). Its plain versions of L3 and L4 take 11 minutes
+    at this size, more than chip_smoke's limit has left."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta, _ = unpack_mbpair(tmp)
+        return run_chaining_path(device, card, table, errs, fasta,
+                                 REF_MBPAIR_CIGAR, "mbpair.fasta",
+                                 MBPAIR_CDQ_ANCHORS, MBPAIR_SCAN_ANCHORS)
 
 
 # ---------------------------------------------------------------------------
@@ -1633,11 +2008,13 @@ def finish_sanitized_build(build_proc):
     return json.loads(out.strip().splitlines()[-1])
 
 
-def run_sanitizer_tier(built, card):
+def start_sanitizer_tier(built, card):
     """Phase 11: the sanitized builds' seconds and ptxas reports (equal to
     the plain build's for every source: the device code is the same), then
-    the sanitized child under LD_PRELOAD and ASAN_OPTIONS: clean, both
-    CIGARs the reference's, every CUDA library launched."""
+    the start of the sanitized child under LD_PRELOAD and ASAN_OPTIONS,
+    which runs beside phases 12-14, its output into temporary files:
+    (process, its standard output and error, start time)."""
+    import tempfile
     from centrolign_tpu_torch import native
     from centrolign_tpu_torch.ops import _build
     for name in SOURCES:
@@ -1655,17 +2032,30 @@ def run_sanitizer_tier(built, card):
           f"{len(SOURCES)} ({', '.join(SOURCES)}) ({card})", flush=True)
     env = dict(os.environ, LD_PRELOAD=native.sanitizer_preload(),
                ASAN_OPTIONS=ASAN_OPTIONS, **{native.SANITIZE_ENV: "1"})
-    t0 = time.perf_counter()
-    r = subprocess.run(
+    out, err = (tempfile.TemporaryFile("w+") for _ in range(2))
+    proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--sanitized-child"],
-        capture_output=True, text=True, env=env, cwd=HERE, timeout=900)
+        stdout=out, stderr=err, text=True, env=env, cwd=HERE)
+    atexit.register(_stop, proc)
+    return proc, out, err, time.perf_counter()
+
+
+def finish_sanitizer_tier(state, card):
+    """Phase 11's end: wait for the sanitized child; it must be clean,
+    both CIGARs the reference's, every CUDA library launched. Returns the
+    seconds from its start to its end seen here."""
+    proc, out_f, err_f, t0 = state
+    proc.wait(timeout=900)
     wall = time.perf_counter() - t0
+    for f in (out_f, err_f):
+        f.seek(0)
+    out, err = out_f.read(), err_f.read()
     for report in ("AddressSanitizer", "runtime error:"):
-        require(report not in r.stderr, f"the sanitized child reported "
-                f"{report!r}:\n{r.stderr[-6000:]}")
-    require(r.returncode == 0, f"the sanitized child exited with "
-            f"{r.returncode}:\n{r.stderr[-4000:]}")
-    rep = json.loads(r.stdout.strip().splitlines()[-1])
+        require(report not in err, f"the sanitized child reported "
+                f"{report!r}:\n{err[-6000:]}")
+    require(proc.returncode == 0, f"the sanitized child exited with "
+            f"{proc.returncode}:\n{err[-4000:]}")
+    rep = json.loads(out.strip().splitlines()[-1])
     require(rep["cigars"] == [True, True], f"a sanitized pair.fasta CIGAR "
             f"differs from the reference (device chaining, sharded tier): "
             f"{rep['cigars']}")
@@ -1678,7 +2068,8 @@ def run_sanitizer_tier(built, card):
     require(not rep["foreign"], f"the sanitized child imported "
             f"{rep['foreign'][:5]}")
     print(f"sanitizer tier on the card (LD_PRELOAD libasan + libubsan, "
-          f"ASAN_OPTIONS={ASAN_OPTIONS}): child wall {wall:.3f} s, no report; "
+          f"ASAN_OPTIONS={ASAN_OPTIONS}): child wall {wall:.3f} s (beside "
+          f"phases 12-14), no report; "
           f"pair.fasta with device chaining {rep['walls'][0]:.3f} s and "
           f"through 2 shards {rep['walls'][1]:.3f} s, CIGARs byte-identical "
           f"to the reference; {rep['dag_jobs']} DAG jobs equal to sanitized "
@@ -2224,18 +2615,147 @@ def finish_jitter_build(state):
     return state["s"]
 
 
-def run_cli(argv):
-    """cli.main(argv) with its standard output captured: (rc, output,
-    wall seconds)."""
+def run_cli(argv, log=None):
+    """cli.main(argv) with its standard output captured (and its standard
+    error, into the text stream `log`, when given): (rc, output, wall
+    seconds)."""
     import torch
     from centrolign_tpu_torch import cli
 
     out = io.StringIO()
+    err = contextlib.redirect_stderr(log) if log is not None \
+        else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), err:
         rc = cli.main(argv)
     torch.cuda.synchronize()
     return rc, out.getvalue(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def recording():
+    """The stitcher's two device entries wrapped to record each call's
+    jobs: yields (chain dispatches, DAG flushes), lists of job lists."""
+    from centrolign_tpu_torch import stitcher as stitcher_mod
+
+    chain, dag = [], []
+    dispatch, dag_batch = stitcher_mod.gotoh_dispatch, \
+        stitcher_mod.popoa_dag_batch
+
+    def recording_dispatch(jobs, dev):
+        chain.append(list(jobs))
+        return dispatch(jobs, dev)
+
+    def recording_dag_batch(jobs, dev):
+        dag.append(list(jobs))
+        return dag_batch(jobs, dev)
+
+    stitcher_mod.gotoh_dispatch = recording_dispatch
+    stitcher_mod.popoa_dag_batch = recording_dag_batch
+    try:
+        yield chain, dag
+    finally:
+        stitcher_mod.gotoh_dispatch = dispatch
+        stitcher_mod.popoa_dag_batch = dag_batch
+
+
+# ---------------------------------------------------------------------------
+# the stage split of a run's wall (phases 15-16), from the elapsed stamps
+# of the CLI's own log at -v 3 (centrolign_tpu_torch/logging.py: 0.1 s
+# resolution)
+
+STAMP = re.compile(r"^\[centrolign_tpu\] elapsed: (\d+):(\d\d):(\d\d\.\d) "
+                   r"(.*)$")
+NEXT_SUBPROBLEM = "Next subproblem contains sequences"
+# a message that starts a stage (its prefix) -> the stage; an unlisted
+# message continues the stage before it
+STAGE_MARKS = (
+    ("Initializing leaf subproblems", "setup"),
+    ("Calibrating scale of anchoring parameters", "calibration"),
+    ("Beginning MSA", "setup"),
+    # sentinel reassignment, then match finding (core.py::prepare_pair_step)
+    (NEXT_SUBPROBLEM, "match"),
+    ("Finding matches", "match"),
+    ("Computing reachability", "reach_chain"),
+    ("Chained ", "partition"),
+    ("Partitioned into ", "stitch"),
+    ("Fusing MSAs", "fuse"),
+    ("Peak memory usage", "end"),
+    ("Maximum memory usage", "end"),
+    ("Run completed", "end"),
+)
+SUBPROBLEM_STAGES = ("match", "reach_chain", "partition", "stitch", "fuse")
+# the messages every subproblem logs (core.py), one starting each of its
+# stages: a log that lacks one (a message renamed) is refused, as its time
+# would go to the stage before it
+SUBPROBLEM_MARKS = tuple(p for p, name in STAGE_MARKS
+                         if name in SUBPROBLEM_STAGES and p != NEXT_SUBPROBLEM)
+
+
+def stage_split(log):
+    """Seconds of each stage in a CLI log written at -v 3: "setup" (leaf
+    subproblems, up to calibration and between calibration and the first
+    subproblem), "calibration", one dict per subproblem ("sequences": its
+    leaves, and the SUBPROBLEM_STAGES: match finding, reachability plus
+    chaining, partition, stitch, fuse) and "end" (from the memory report
+    on). Each interval between two stamps goes to the stage the first of
+    them started. The stamps have 0.1 s resolution. Raises ValueError
+    when a subproblem lacks one of the SUBPROBLEM_MARKS."""
+    events = []  # [tenths of a second, message, continuation lines]
+    for line in log.splitlines():
+        m = STAMP.match(line)
+        if m:
+            h, mi, s, msg = m.groups()
+            tenths = (int(h) * 60 + int(mi)) * 600 + int(s.replace(".", ""))
+            events.append([tenths, msg, []])
+        elif events and line.startswith("\t"):
+            events[-1][2].append(line.strip())
+    split = {"setup": 0, "calibration": 0, "subproblems": [], "end": 0}
+    seen = []  # the SUBPROBLEM_MARKS each subproblem logged
+    stage = "setup"
+    for k, (t, msg, names) in enumerate(events):
+        for prefix, name in STAGE_MARKS:
+            if msg.startswith(prefix):
+                if prefix == NEXT_SUBPROBLEM:
+                    split["subproblems"].append(
+                        {"sequences": names,
+                         **{s_: 0 for s_ in SUBPROBLEM_STAGES}})
+                    seen.append(set())
+                elif seen:
+                    seen[-1].add(prefix)
+                stage = name
+                break
+        if k + 1 == len(events):
+            break
+        dt = events[k + 1][0] - t
+        if stage in SUBPROBLEM_STAGES and split["subproblems"]:
+            split["subproblems"][-1][stage] += dt
+        else:
+            split[stage] += dt
+    for k, marks in enumerate(seen):
+        missing = [p for p in SUBPROBLEM_MARKS if p not in marks]
+        if missing:
+            raise ValueError(f"subproblem {k + 1} of the log has no message "
+                             f"starting with {missing}")
+    for part in (split, *split["subproblems"]):
+        for key, v in part.items():
+            if isinstance(v, int):
+                part[key] = v / 10
+    return split
+
+
+def print_stages(label, split, card):
+    """One line for the run's stages outside the subproblems, one per
+    subproblem."""
+    print(f"{label} stage split (s, from the CLI log's 0.1 s stamps): setup "
+          f"{split['setup']:.1f}, calibration {split['calibration']:.1f}, "
+          f"end {split['end']:.1f}; {len(split['subproblems'])} "
+          f"subproblems ({card})", flush=True)
+    for k, sub in enumerate(split["subproblems"]):
+        stages = ", ".join(f"{s_} {sub[s_]:.1f}" for s_ in SUBPROBLEM_STAGES)
+        total = sum(sub[s_] for s_ in SUBPROBLEM_STAGES)
+        print(f"  subproblem {k + 1} ({len(sub['sequences'])} sequences): "
+              f"{stages}; {total:.1f} in all", flush=True)
 
 
 def reset_counts():
@@ -2271,8 +2791,24 @@ def counts():
             "event_waits": shg.EVENT_WAITS}
 
 
+def kernel_row(name, k, launches, err):
+    """A kernel's row of the kernel table from its entry `k` of a table
+    (new_table)."""
+    bound_ms, bound_by = k["work"].bound()
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main() -> int:
     run_t0 = time.perf_counter()
+
+    def mark(phase):
+        print(f"[{time.perf_counter() - run_t0:.1f} s] phase {phase}",
+              flush=True)
+
     if not os.path.isdir(os.path.join(HERE, "centrolign_tpu_torch")):
         print("error: run chip_smoke.py from a checkout of the repository",
               file=sys.stderr)
@@ -2291,7 +2827,6 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     device = torch.device("cuda", 0)
     from centrolign_tpu_torch import metrics
-    from centrolign_tpu_torch import stitcher as stitcher_mod
     from centrolign_tpu_torch.device import device_kind
     from centrolign_tpu_torch.ops import _build
     from centrolign_tpu_torch.ops import gotoh as plain_gotoh
@@ -2328,8 +2863,11 @@ def main() -> int:
     rng = np.random.default_rng(20261016)
     errs = {name: 0 for name in KERNELS}
 
+    mark("3")
     # 3. Gotoh kernels on the bag
     bag = make_bag(rng, params)
+    require(max(max(len(j[0]), len(j[1])) for j in bag) > gc.STAGE_LABELS,
+            "the Gotoh bag has no long side past the staged labels")
     res, rows = compare_gotoh(bag, device, reps=3)
     work = {"gotoh_fill": Work(), "gotoh_traceback": Work()}
     gotoh_work(bag, rows, work["gotoh_fill"], work["gotoh_traceback"])
@@ -2380,32 +2918,18 @@ def main() -> int:
     # 3f. its chunk length and block width
     shard_sweep(rng, params, device, card)
 
+    mark("4")
     # 4. the pairwise path
-    dispatched, dag_dispatched = [], []
-    dispatch, dag_batch = stitcher_mod.gotoh_dispatch, \
-        stitcher_mod.popoa_dag_batch
-
-    def recording_dispatch(jobs, dev):
-        dispatched.append(list(jobs))
-        return dispatch(jobs, dev)
-
-    def recording_dag_batch(jobs, dev):
-        dag_dispatched.append(list(jobs))
-        return dag_batch(jobs, dev)
-
-    stitcher_mod.gotoh_dispatch = recording_dispatch
-    stitcher_mod.popoa_dag_batch = recording_dag_batch
     os.environ["CENTROLIGN_TORCH_DEVICE"] = "cuda"
     os.environ.pop("CENTROLIGN_TORCH_DEVICE_MIN_CELLS", None)
     os.environ.pop("CENTROLIGN_TORCH_DEVICE_DAG", None)
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_counts()
-    rc, out, wall = run_cli(["-v", "0", PAIR])
-    pair_counts = counts()
+    with recording() as (dispatched, _):
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        rc, out, wall = run_cli(["-v", "0", PAIR])
+        pair_counts = counts()
     require(rc == 0, f"cli.main returned {rc} on pair.fasta")
-    with open(REF_CIGAR) as f:
-        require(out == f.read(),
-                "pair.fasta CIGAR differs from benchdata/ref_pair.cigar.txt")
+    same_bytes(out, REF_CIGAR, "pair.fasta's CIGAR")
     pod = metrics.counters.get("pod", [0, 0, 0.0])
     require(pair_counts["gotoh_fill"] > 0 and pair_counts["gotoh_traceback"] > 0,
             f"pairwise path launched {pair_counts}")
@@ -2420,9 +2944,7 @@ def main() -> int:
     print("pair.fasta aligner counters: " + json.dumps(metrics.summary()),
           flush=True)
 
-    table = {name: {"ms": 0.0, "plain_ms": 0.0, "work": Work(),
-                    "design": Work()}
-             for name in KERNELS}
+    table = new_table()
     here = compare_path_gotoh(dispatched, pair_counts["gotoh_fill"], device,
                               table, errs)
     for name, (ms, pms) in here.items():
@@ -2434,20 +2956,18 @@ def main() -> int:
     # card: only the 4356 x 3330 gap is over its threshold
     shard_counts = run_shard_tier(device, card, table, errs)
 
+    mark("5")
     # 5. the MSA path
-    dispatched.clear()
     os.environ["CENTROLIGN_TORCH_DEVICE_DAG"] = "1"
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_counts()
-    rc, out, wall = run_cli(["-v", "0", "-T", FIVE_TREE, FIVE])
-    five_counts = counts()
+    log = io.StringIO()
+    with recording() as (dispatched, dag_dispatched):
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        rc, out, wall = run_cli(["-v", "3", "-T", FIVE_TREE, FIVE], log)
+        five_counts = counts()
     os.environ.pop("CENTROLIGN_TORCH_DEVICE_DAG")
-    stitcher_mod.gotoh_dispatch = dispatch
-    stitcher_mod.popoa_dag_batch = dag_batch
     require(rc == 0, f"cli.main returned {rc} on five.fasta")
-    with open(REF_GFA) as f:
-        require(out == f.read(),
-                "five.fasta GFA differs from benchdata/ref_five.gfa")
+    same_bytes(out, REF_GFA, "five.fasta's GFA")
     require(all(five_counts[k] > 0 for k in (
         "gotoh_fill", "gotoh_traceback", "popoa_dag_fill",
         "popoa_dag_traceback")), f"MSA path launched {five_counts}")
@@ -2470,6 +2990,7 @@ def main() -> int:
     five_summary = metrics.summary()
     print("five.fasta aligner counters: " + json.dumps(five_summary),
           flush=True)
+    print_stages("five.fasta", stage_split(log.getvalue()), card)
     longest = (None, -1)  # five.fasta's longest walk: (job, steps)
     dag_launches = [g for flush in dag_dispatched
                     for g in pdc.launch_groups(flush)]
@@ -2525,6 +3046,7 @@ def main() -> int:
           f"cells, {po_on['seconds']:.4f} s) ({card})", flush=True)
 
     # 6. the single-problem entry on a pair.fasta-sized gap
+    mark("6")
     from centrolign_tpu_torch.io.fasta import parse_fasta
     from centrolign_tpu_torch.utils.encoding import encode_seq
     with open(PAIR) as f:
@@ -2628,21 +3150,19 @@ def main() -> int:
               f"bit-equal; {tb_ms:.3f} ms over {tb_steps} steps, "
               f"{tb_ms / tb_steps * 1e3:.4f} us a step ({card})", flush=True)
 
+    mark("7")
     # 7. device tier against host po on the gaps below device_min_cells
     from centrolign_tpu_torch.graph import BaseGraph
     from centrolign_tpu_torch.native import popoa_align
 
-    dispatched.clear()
-    stitcher_mod.gotoh_dispatch = recording_dispatch
     os.environ["CENTROLIGN_TORCH_DEVICE_MIN_CELLS"] = "10000"
-    reset_counts()
-    rc, out, _ = run_cli(["-v", "0", PAIR])
+    with recording() as (dispatched, _):
+        reset_counts()
+        rc, out, _ = run_cli(["-v", "0", PAIR])
     os.environ.pop("CENTROLIGN_TORCH_DEVICE_MIN_CELLS")
-    stitcher_mod.gotoh_dispatch = dispatch
     require(rc == 0, f"cli.main returned {rc} on pair.fasta at 10,000 cells")
-    with open(REF_CIGAR) as f:
-        require(out == f.read(), "pair.fasta CIGAR at a 10,000-cell "
-                "threshold differs from benchdata/ref_pair.cigar.txt")
+    same_bytes(out, REF_CIGAR,
+               "pair.fasta's CIGAR at a 10,000-cell threshold")
     below = [j for jobs in dispatched for j in jobs
              if len(j[0]) * len(j[1]) < 160_000]
 
@@ -2676,24 +3196,23 @@ def main() -> int:
               f"({host_s * 1e3 / len(part):.3f} ms a gap); one device "
               f"dispatch + fetch {dev_ms:.3f} ms ({card})", flush=True)
 
+    mark("8")
     # 8. the pairwise path with device chaining
-    chain_counts = run_chaining_path(device, card, table, errs)
-    for name in ("chain_cdq_scan", "chain_scan_event"):
-        k = table[name]
-        print(f"pair.fasta chaining problems, {name}: kernel {k['ms']:.3f} "
-              f"ms over {chain_counts[name]} launches, plain "
-              f"{k['plain_ms']:.1f} ms, bound {k['work'].bound()[0]:.6f} ms "
-              f"({k['work'].bound()[1]}; the function's work), "
-              f"{k['design'].bound()[0]:.6f} ms ({k['design'].bound()[1]}; "
-              f"this design's work), library none ({card})", flush=True)
+    chain_counts = run_chaining_path(device, card, table, errs, PAIR,
+                                     REF_CIGAR, "pair.fasta",
+                                     PAIR_CDQ_ANCHORS, PAIR_SCAN_ANCHORS)
 
+    mark("9")
     # 9-10. five.fasta over two pool workers and over two torch.distributed
     # ranks on the card, beside the serial run of 5b (the same settings)
     run_executors(device, card, wall_off, out_off)
 
+    mark("11")
     # 11. the sanitizer tier on the card: a child under ASan and UBSan
-    # reaches the host launcher of every CUDA library
-    san_wall = run_sanitizer_tier(san_built, card)
+    # reaches the host launcher of every CUDA library, beside phases 12-14
+    # (which time no kernel for the kernel table)
+    san = start_sanitizer_tier(san_built, card)
+    mark("12")
     # 12-14. every kernel family (one launch each, the Gotoh fill also
     # with a short side over 4096) and its plain version on the card
     t0 = time.perf_counter()
@@ -2715,6 +3234,7 @@ def main() -> int:
               "guarded", flush=True)
     guard_wall = guard_bands(families, card)
     jitter_wall = jitter_runs(families, card)
+    san_wall = finish_sanitizer_tier(san, card)
     print(f"phase 11 (sanitized child) {san_wall:.3f} s, the plain versions "
           f"of phases 12-14 {plain_s:.3f} s, phase 12 (poisoned memory) "
           f"{poison_wall:.3f} s, phase 13 (guard bands) {guard_wall:.3f} s, "
@@ -2722,13 +3242,14 @@ def main() -> int:
           f"{plain_s + poison_wall + guard_wall + jitter_wall:.3f} s "
           f"({card})", flush=True)
 
+    # 15. the megabase pair (with device chaining: --mbpair-chaining)
+    mark("15")
+    run_mbpair(device, card, errs)
+
     # the end: no jax, nothing of the JAX package, in this process or in
     # any worker or rank
     from centrolign_tpu_torch.parallel import counters as pcounters
-    leaked = sorted(m for m in sys.modules
-                    if m == "jax" or m.startswith("jax.")
-                    or m == "centrolign_tpu" or m.startswith("centrolign_tpu."))
-    leaked += sorted(pcounters.FOREIGN)
+    leaked = foreign_modules() + sorted(pcounters.FOREIGN)
     require(not leaked, f"modules of jax or the JAX package were imported: "
             f"{leaked[:5]}")
 
@@ -2740,15 +3261,8 @@ def main() -> int:
                 "chain_cdq_scan": chain_counts["chain_cdq_scan"],
                 "chain_scan_event": chain_counts["chain_scan_event"],
                 "sharded_gotoh_fill": shard_counts["sharded_gotoh_fill"]}
-    rows = []
-    for name, (source, replaces) in KERNELS.items():
-        k = table[name]
-        bound_ms, bound_by = k["work"].bound()
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
+    rows = [kernel_row(name, table[name], launches[name], errs[name])
+            for name in KERNELS]
     print(f"chip_smoke ran {time.perf_counter() - run_t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -2760,7 +3274,12 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--build-sanitized": build_sanitized,
-             "--sanitized-child": sanitized_child}
+             "--sanitized-child": sanitized_child,
+             "--mbpair-chaining": lambda: own_run(
+                 "--mbpair-chaining", mbpair_chaining,
+                 ("chain_cdq_scan", "chain_scan_event")),
+             "--ten": lambda: own_run(
+                 "--ten", run_ten, ("popoa_dag_fill", "popoa_dag_traceback"))}
     try:
         rc = modes[sys.argv[1]]() if sys.argv[1:] else main()
     except LaunchTimeout as err:

@@ -49,6 +49,23 @@ FIVE_JOBS = [
 ]
 
 
+def _torch_ref(name):
+    """A job-shape record of tests/torch_ref/ (written from chip_smoke's
+    phases 15-16: the megabase pair's chain dispatches, ten.fasta's DAG
+    flushes)."""
+    import json
+    import os
+    with open(os.path.join(os.path.dirname(__file__), "torch_ref",
+                           name)) as f:
+        return json.load(f)
+
+
+# the chain jobs of the megabase pair (tests/torch_ref/mbpair.fasta.gz),
+# one list of (V1, V2) a dispatch
+MBPAIR_JOBS = [[tuple(s) for s in d]
+               for d in _torch_ref("mbpair_jobs.json")["dispatches"]]
+
+
 def _port(jobs):
     """The jobs with the JAX package's parameters turned into the port's."""
     return [(s1, s2, swp, params_from_arrays(
@@ -169,10 +186,11 @@ def _edge_shapes():
             for k, s in enumerate(shorts)]
 
 
-@pytest.mark.parametrize("shapes", [PAIR_JOBS, *FIVE_JOBS, _edge_shapes(),
-                                    [(4356, 3330)], [(7, 5)] * 200,
-                                    [(5000, 4000)] * 20],
+@pytest.mark.parametrize("shapes", [PAIR_JOBS, *FIVE_JOBS, *MBPAIR_JOBS,
+                                    _edge_shapes(), [(4356, 3330)],
+                                    [(7, 5)] * 200, [(5000, 4000)] * 20],
                          ids=["pair", *(f"five{k}" for k in range(5)),
+                              *(f"mbpair{k}" for k in range(len(MBPAIR_JOBS))),
                               "edges", "one_wide", "many_small",
                               "many_wide"])
 @pytest.mark.parametrize("cluster_min_lanes", [gc.CLUSTER_MIN_LANES, 0,
@@ -256,15 +274,43 @@ def _dag(rng, V, K, S):
     return g
 
 
+def _dag_k(rng, V, K, S):
+    """A chain of V nodes with, for in-degree K > 1, edges of the K - 1
+    spans S, S - 1, ... into every seventh node from S on: in-degree K,
+    longest span S (K <= S)."""
+    from centrolign_tpu_torch.graph import BaseGraph
+    g = BaseGraph()
+    g.add_nodes(rng.integers(0, 4, V))
+    src = list(range(V - 1))
+    dst = list(range(1, V))
+    for span in range(S, S - K + 1, -1):
+        src += [i - span for i in range(S, V, 7)]
+        dst += list(range(S, V, 7))
+    g.add_edges(src, dst)
+    return g
+
+
 def _five_dag_jobs():
+    return _shaped_dag_jobs(FIVE_DAG_JOBS, _dag)
+
+
+def _ten_dag_jobs():
+    return _shaped_dag_jobs(
+        [tuple(j) for flush in _torch_ref("ten_dag_jobs.json")["flushes"]
+         for j in flush], _dag_k)
+
+
+def _shaped_dag_jobs(shapes, make):
+    """DAG jobs of the given (V1, V2, K1, K2, S1, S2, npw), the graphs from
+    `make(rng, V, K, S)`."""
     import chip_smoke
     rng = np.random.default_rng(4)
     params = params_from_arrays(20, 80, np.array([60, 800, 2500]),
                                 np.array([30, 5, 1]))
     jobs = []
-    for V1, V2, K1, K2, S1, S2, npw in FIVE_DAG_JOBS:
-        job = chip_smoke.dag_job(_dag(rng, V1, K1, S1), _dag(rng, V2, K2, S2),
-                                 params.truncated(npw))
+    for V1, V2, K1, K2, S1, S2, npw in shapes:
+        job = chip_smoke.dag_job(make(rng, V1, K1, S1),
+                                 make(rng, V2, K2, S2), params.truncated(npw))
         assert (job.t1.V, job.t2.V, job.t1.K, job.t2.K, job.t1.S,
                 job.t2.S) == (V1, V2, K1, K2, S1, S2)
         jobs.append(job)
@@ -278,17 +324,21 @@ def _dag_bag():
     return chip_smoke.make_dag_bag(np.random.default_rng(20261016), params)[0]
 
 
-@pytest.mark.parametrize("jobs", [_five_dag_jobs, _dag_bag],
-                         ids=["five_fasta", "bag"])
-def test_dag_fill_layout(jobs):
+@pytest.mark.parametrize("jobs, in_scratch",
+                         [(_five_dag_jobs, 0), (_dag_bag, None),
+                          (_ten_dag_jobs,
+                           _torch_ref("ten_dag_jobs.json")["in_scratch"])],
+                         ids=["five_fasta", "bag", "ten_fasta"])
+def test_dag_fill_layout(jobs, in_scratch):
     """csrc/popoa_dag.cu's fill layout, replayed as the kernel derives it:
     each ring plane is as deep as the longest span it is read at, taken
     from the delta rows the kernel reads (M: both graphs; PM, PMk1, D:
     graph 2; I: graph 1); the state (the other side's records, then the
     rings over the short side's lanes) is whole int4s; the launch's shared
-    memory stays within what a block has; every five.fasta job's state is
-    in shared memory, and a job is in global scratch only when its state
-    does not fit; the block holds the widest job's lanes."""
+    memory stays within what a block has; a job is in global scratch only
+    when its state does not fit, and as many jobs are there as on the card
+    (`in_scratch`; None: at least one); the block holds the widest job's
+    lanes."""
     from centrolign_tpu_torch.ops import popoa_dag as dag
     from centrolign_tpu_torch.ops import popoa_dag_cuda as pdc
     jobs = jobs()
@@ -324,11 +374,14 @@ def test_dag_fill_layout(jobs):
             assert scr == off and scr % 4 == 0
             off += pdc._ring_ints(job)
     assert off == scratch
-    if jobs[0].t1.V == FIVE_DAG_JOBS[0][0]:
+    n_scratch = int((t[:, dag.COL_SCRATCH_LO] != -1).sum())
+    if in_scratch is None:
+        assert n_scratch > 0 and scratch > 0
+    else:
+        assert n_scratch == in_scratch
+    if n_scratch == 0:
         assert scratch == 0
         assert max(4 * pdc._ring_ints(j) for j in jobs) == smem
-    else:
-        assert scratch > 0
 
 
 def _replay_traceback(V1, V2, bp_off, bp_size, walk):

@@ -16,7 +16,8 @@ from centrolign_tpu.ops.align_params import AlignmentParams
 from centrolign_tpu_torch.ops.popoa_ref import popoa
 from centrolign_tpu_torch.ops import gotoh as torch_gotoh
 from centrolign_tpu_torch.ops.align_params import params_from_arrays
-from centrolign_tpu_torch.ops.gotoh_cuda import (gotoh_align_device,
+from centrolign_tpu_torch.ops.gotoh_cuda import (STAGE_LABELS,
+                                                 gotoh_align_device,
                                                  pack_seqs, params_table)
 
 from util import graph_sinks, graph_sources, random_chain
@@ -108,6 +109,35 @@ def test_fill_edge_widths_match_jax_scan(short, lane_is_i, swap_pref):
     s2 = np.resize(s1, V2).astype(np.int32)
     s2[rng.integers(0, V2, max(1, V2 // 6))] = rng.integers(0, 4)
     _check_plain_fill(s1, s2, params, swap_pref, lane_is_i)
+
+
+@pytest.mark.parametrize("lane_is_i", [True, False], ids=["lanes_i", "lanes_j"])
+def test_long_side_past_staged_labels_matches_jax(lane_is_i):
+    """A 1,000 x 20,000 job, whose long side passes the labels the CUDA
+    fill stages in shared memory (STAGE_LABELS; past them it reads device
+    memory): the plain fill's backpointers and score equal the JAX scan's,
+    and the plain traceback's alignment the JAX package's gotoh_align."""
+    V1, V2 = (1000, 20000) if lane_is_i else (20000, 1000)
+    assert max(V1, V2) > STAGE_LABELS
+    params = PARAMS[0]
+    rng = np.random.default_rng(STAGE_LABELS + lane_is_i)
+    s1 = rng.integers(0, 4, V1).astype(np.int32)
+    s2 = np.resize(s1, V2).astype(np.int32)
+    s2[rng.integers(0, V2, V2 // 10)] = rng.integers(0, 4)
+    bp_j, score_j, _ = _jax_fill(s1, s2, params, False)
+    job = (s1, s2, False, _port(params))
+    table = params_table([job])
+    bp_t, score_t = torch_gotoh.gotoh_fill_plain(table, pack_seqs([job]))
+    bp = bp_t.view(torch.int16).numpy().astype(np.int64).reshape(bp_j.shape)
+    inside = _in_matrix(V1, V2, lane_is_i, bp_j.shape[1])
+    assert np.array_equal(bp[inside], bp_j[inside])
+    assert int(score_t[0]) == score_j
+    rows = torch_gotoh.gotoh_traceback_plain(bp_t, score_t, table,
+                                             V1 + V2)[0].numpy()
+    count = int(rows[0, 0])
+    aln_j, score_a = jax_gotoh.gotoh_align(s1, s2, params)
+    assert int(rows[0, 1]) == score_a == score_j
+    assert np.array_equal(rows[len(rows) - count:].astype(np.int64), aln_j)
 
 
 @pytest.mark.parametrize("params", PARAMS,
