@@ -408,9 +408,9 @@ class Core:
                     + "\n")
 
     def apply_bonds(self, bond_alignments) -> None:
-        """(reference src/core.cpp:594-648). Known gap: the post-cyclization
-        polish pass (inconsistency realignment, src/core.cpp:650-767) is not
-        implemented yet."""
+        """(reference src/core.cpp:594-648): fuse the bond alignments into
+        the root graph, simplify its bubbles, then run the polish pass
+        (polish_cyclized_graph, src/core.cpp:650-767)."""
         if not bond_alignments:
             return
         logmod.log(logmod.Basic, "Cyclizing the final graph.")

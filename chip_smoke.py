@@ -4,14 +4,17 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --mbpair-chaining
     python3 chip_smoke.py --ten
+    python3 chip_smoke.py --cyclize
+    python3 chip_smoke.py --cyclize-pool
 
 The first runs phases 1-15 below, in 1,200 s; each of the others runs one
 path that does not fit beside them, in a call of its own, after its own
 build: phase 8's checks on the megabase pair of phase 15 (anchors 912,654
 for the CDQ scan, 117,948, 119,836 and 1,249,939 for the event scan; the
-plain versions take 11 minutes there on an H100), and phase 16 (8
-minutes there). Each ends with its kernels' rows of the kernel table and
-the card's name and power limit.
+plain versions take 11 minutes there on an H100), phase 16 (8 minutes
+there), phase 17 and phase 17's run over the pool executor. Each ends
+with its kernels' rows of the kernel table and the card's name and power
+limit.
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 1. environment: torch and CUDA versions, the card's name and power limit;
@@ -178,6 +181,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    of every subproblem; both DAG kernels are held and timed against their
    plain versions on every DAG launch, with its longest job (the most
    diagonals) and the time per diagonal step;
+17. (--cyclize) the megabase pair through the CLI with -c
+   (tests/torch_ref/mbpair_cyc.cfg: the side files of -S, -s and
+   --bond-prefix, the polish's three settings at none): the GFA must equal
+   tests/torch_ref/ref_mbpair_cyc.gfa.gz (the JAX CLI's), every side file
+   its sha256 in mbpair_cyc.json, the bonds found by round the record's,
+   and the chain jobs those of mbpair_cyc_jobs.json (a CPU run's); the
+   bonding stitches' Gotoh launches are counted apart from the pair's (a
+   hook on Stitcher.internal_stitch), and both must have launched both
+   kernels; it prints the wall, the peak device memory, each bond's and
+   the pair's dispatches and fill launch plans, the host aligners'
+   counters and the stage split (calibration, each bonding round's masked
+   self-chaining and internal stitches, the pair, cyclizing, polish);
+   then a -R restart with the largest subproblem file deleted must give
+   the same GFA and rewrite that file as recorded; the Gotoh kernels are
+   held against their plain versions on the pair's dispatches and on
+   seq1's bonds'. --cyclize-pool runs the same with --hosts 2 over the
+   pool executor, one leaf's bonding a worker, both workers on the card:
+   the same GFA and side files, each worker's bonding launched both
+   kernels, no task recomputed in the parent; then seq2's bonding task
+   runs again in the parent, its bonds equal to the worker's, and its
+   dispatches are held against the plain versions (all 25 bonds' plain
+   versions do not fit beside one run);
 and at the end neither jax nor any module of the JAX package may be in the
 process, nor in any worker or rank. Each path runs with the launch counters set to 0 just before it
 and read just after. The last lines of standard output are the run's
@@ -212,6 +237,15 @@ MBPAIR_GZ = os.path.join(TORCH_REF, "mbpair.fasta.gz")
 MBPAIR_JSON = os.path.join(TORCH_REF, "mbpair.json")
 REF_MBPAIR_CIGAR = os.path.join(TORCH_REF, "ref_mbpair.cigar.txt")
 REF_TEN_GFA = os.path.join(TORCH_REF, "ref_ten.gfa")
+MBPAIR_JOBS = os.path.join(TORCH_REF, "mbpair_jobs.json")
+# -c on the megabase pair (--cyclize, --cyclize-pool): the config with
+# placeholders for the FASTA and the side files' directory, the JAX CLI's
+# GFA and its record (the bonds by round, each side file's size and
+# sha256), and the chain jobs of a CPU run of the port
+MBPAIR_CYC_CFG = os.path.join(TORCH_REF, "mbpair_cyc.cfg")
+MBPAIR_CYC_JSON = os.path.join(TORCH_REF, "mbpair_cyc.json")
+REF_MBPAIR_CYC_GFA = os.path.join(TORCH_REF, "ref_mbpair_cyc.gfa.gz")
+MBPAIR_CYC_JOBS = os.path.join(TORCH_REF, "mbpair_cyc_jobs.json")
 GOTOH_SRC = "centrolign_tpu_torch/csrc/gotoh.cu"
 DAG_SRC = "centrolign_tpu_torch/csrc/popoa_dag.cu"
 CDQ_SRC = "centrolign_tpu_torch/csrc/chain_cdq.cu"
@@ -1601,13 +1635,18 @@ def same_bytes(out, ref, what):
     """Raise unless `out` equals the file `ref`, naming the first byte
     that differs."""
     with open(ref) as f:
-        want = f.read()
+        same_text(out, f.read(), f"{what} ({os.path.relpath(ref, HERE)})")
+
+
+def same_text(out, want, what):
+    """Raise unless the text `out` equals `want`, naming the first byte
+    that differs."""
     if out == want:
         return
     k = next((i for i, (a, b) in enumerate(zip(out, want)) if a != b),
              min(len(out), len(want)))
-    raise RuntimeError(f"{what} differs from {os.path.relpath(ref, HERE)} "
-                       f"at byte {k} (lengths {len(out)} and {len(want)}): "
+    raise RuntimeError(f"{what} differs from the reference at byte {k} "
+                       f"(lengths {len(out)} and {len(want)}): "
                        f"{out[max(k - 40, 0):k + 80]!r} against "
                        f"{want[max(k - 40, 0):k + 80]!r}")
 
@@ -1642,11 +1681,12 @@ def print_dispatches(label, dispatched, card):
         cells = [(a + 1) * (b + 1) for a, b in shapes]
         big = shapes[max(range(len(shapes)), key=cells.__getitem__)]
         wide = sum(min(a, b) + 1 > gc.CLUSTER_MIN_LANES for a, b in shapes)
+        k3 = sum(min(a, b) > 4096 for a, b in shapes)
         print(f"{label} dispatch {k + 1}: {len(jobs)} jobs, {sum(cells)} "
               f"cells, largest {big[0]} x {big[1]} ({max(cells)} cells), "
               f"longest side {max(max(s_) for s_ in shapes)}, {wide} jobs "
-              f"over {gc.CLUSTER_MIN_LANES} lanes; shapes "
-              f"{json.dumps(shapes)}", flush=True)
+              f"over {gc.CLUSTER_MIN_LANES} lanes, {k3} with a short side "
+              f"over 4,096 (K3's); shapes {json.dumps(shapes)}", flush=True)
         for part in gc._split_launches(jobs):
             plan = gc.launch_sizes(part)[1]
             rows = plan.blocks[plan.blocks[:, 0] >= 0]
@@ -1682,7 +1722,7 @@ def run_mbpair(device, card, errs):
         print(f"mbpair.fasta: {meta['names']} of {meta['lengths']} bp, "
               f"sha256 {meta['sha256']} as recorded", flush=True)
         log = io.StringIO()
-        with recording() as (dispatched, _):
+        with recording() as (dispatched, _, _):
             torch.cuda.reset_peak_memory_stats(device)
             reset_counts()
             rc, out, wall = run_cli(["-v", "3", fasta], log)
@@ -1731,7 +1771,7 @@ def run_ten(device, card, table, errs):
     log = io.StringIO()
     os.environ["CENTROLIGN_TORCH_DEVICE_DAG"] = "1"
     try:
-        with recording() as (dispatched, dag_dispatched):
+        with recording() as (dispatched, dag_dispatched, _):
             torch.cuda.reset_peak_memory_stats(device)
             reset_counts()
             rc, out, wall = run_cli(["-v", "3", "-T", TEN_TREE, TEN], log)
@@ -1815,7 +1855,8 @@ def foreign_modules():
 
 
 def own_run(flag, path, names):
-    """A path of chip_smoke in a run of its own (--mbpair-chaining, --ten):
+    """A path of chip_smoke in a run of its own (--mbpair-chaining, --ten,
+    --cyclize, --cyclize-pool):
     the checks of main's start and the build, then `path(device, card,
     table, errs)`, which returns the path's launch counts; prints the run's
     seconds, the rows of the kernel table for `names` and the card's name
@@ -1862,6 +1903,408 @@ def mbpair_chaining(device, card, table, errs):
         return run_chaining_path(device, card, table, errs, fasta,
                                  REF_MBPAIR_CIGAR, "mbpair.fasta",
                                  MBPAIR_CDQ_ANCHORS, MBPAIR_SCAN_ANCHORS)
+
+
+def cyclize_config(path, fasta, out, restart=False):
+    """Write tests/torch_ref/mbpair_cyc.cfg to `path` with its placeholders
+    filled in ({fasta}: the FASTA, {out}: the directory of the -S, -s and
+    bond files) and, when `restart`, restart set: returns `path`."""
+    with open(MBPAIR_CYC_CFG) as f:
+        text = f.read().replace("{fasta}", fasta).replace("{out}", out)
+    if restart:
+        require(" restart: false\n" in text, "mbpair_cyc.cfg sets no "
+                "'restart: false'")
+        text = text.replace(" restart: false\n", " restart: true\n")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def side_files(out):
+    """{name: {"size", "sha256"}} of each file in the directory `out`;
+    cp_info.txt names each subproblem's file by its path, so the
+    directory's path is taken out of it first."""
+    import hashlib
+    files = {}
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name), "rb") as f:
+            data = f.read()
+        if name.endswith("_info.txt"):
+            data = data.replace(out.encode(), b"")
+        files[name] = {"size": len(data),
+                       "sha256": hashlib.sha256(data).hexdigest()}
+    return files
+
+
+def same_side_files(got, want, what):
+    """Raise unless two side_files records are equal, naming the files
+    that differ."""
+    if got == want:
+        return
+    names = sorted(n for n in set(got) | set(want)
+                   if got.get(n) != want.get(n))
+    raise RuntimeError(f"{what}: {len(names)} side files differ from the "
+                       f"record: {names[:8]} (got "
+                       f"{[got.get(n) for n in names[:3]]}, want "
+                       f"{[want.get(n) for n in names[:3]]})")
+
+
+def cyclize_reference():
+    """(mbpair_cyc.json, the JAX CLI's GFA as text), the GFA's size and
+    sha256 checked against the record's."""
+    import gzip
+    import hashlib
+    with open(MBPAIR_CYC_JSON) as f:
+        ref = json.load(f)
+    with gzip.open(REF_MBPAIR_CYC_GFA, "rb") as f:
+        data = f.read()
+    require([len(data), hashlib.sha256(data).hexdigest()]
+            == [ref["gfa"]["size"], ref["gfa"]["sha256"]],
+            f"ref_mbpair_cyc.gfa.gz unpacks to {len(data)} B, sha256 "
+            f"{hashlib.sha256(data).hexdigest()}; the record says "
+            f"{ref['gfa']}")
+    return ref, data.decode()
+
+
+def cyclize_jobs(dispatched, stitches):
+    """The chain jobs of a -c run as [V1, V2] each, from recording():
+    {"bonding": for each internal stitch the job list of each of its
+    dispatches, "pair": the job list of every other dispatch}."""
+    shapes = [[[len(j[0]), len(j[1])] for j in jobs] for jobs in dispatched]
+    own = {i for st in stitches for i in st["dispatches"]}
+    return {"bonding": [[shapes[i] for i in st["dispatches"]]
+                        for st in stitches],
+            "pair": [sh for i, sh in enumerate(shapes) if i not in own]}
+
+
+def record_cyclize_jobs(path=MBPAIR_CYC_JOBS):
+    """Run the megabase pair with mbpair_cyc.cfg through the port's CLI in
+    this process, on the device that CENTROLIGN_TORCH_DEVICE names (cpu:
+    the plain versions), and write its chain jobs (cyclize_jobs) to
+    `path`, as tests/torch_ref/mbpair_cyc_jobs.json was written. Returns
+    the run's GFA and its side_files."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta, _ = unpack_mbpair(tmp)
+        out = os.path.join(tmp, "out")
+        os.mkdir(out)
+        cfg = cyclize_config(os.path.join(tmp, "cyc.cfg"), fasta, out)
+        with recording() as (dispatched, _, stitches):
+            rc, gfa, _ = run_cli(["-C", cfg, "--force-gfa-output"],
+                                 io.StringIO())
+        files = side_files(out)
+    require(rc == 0, f"cli.main returned {rc}")
+    with open(path, "w") as f:
+        json.dump({"what": "the chain tier's jobs on mbpair.fasta.gz with "
+                   "mbpair_cyc.cfg, [V1, V2] each: 'bonding' holds one "
+                   "list a bond (each internal stitch, in order) of its "
+                   "dispatches' job lists, 'pair' the other dispatches "
+                   "(chip_smoke.py --cyclize; chip_smoke.record_cyclize_jobs "
+                   "with CENTROLIGN_TORCH_DEVICE=cpu wrote it)",
+                   **cyclize_jobs(dispatched, stitches)}, f)
+        f.write("\n")
+    return gfa, files
+
+
+def hold_bonds(label, stitches, dispatched, first, device, table, errs,
+               card):
+    """Hold both Gotoh kernels against their plain versions on every
+    dispatch of the internal stitches `stitches` (recording()'s, the
+    first of them bond number `first` + 1), into `table` and `errs`."""
+    ms = {"gotoh_fill": [0.0, 0.0], "gotoh_traceback": [0.0, 0.0]}
+    for st in stitches:
+        part = compare_path_gotoh([dispatched[i] for i in st["dispatches"]],
+                                  st["fills"], device, table, errs)
+        for name, (k, p) in part.items():
+            ms[name][0] += k
+            ms[name][1] += p
+    print(f"{label}, bonds {first + 1}-{first + len(stitches)}: bit-equal on "
+          f"{sum(len(st['dispatches']) for st in stitches)} dispatches, fill "
+          f"{ms['gotoh_fill'][0]:.3f} ms (plain {ms['gotoh_fill'][1]:.1f}), "
+          f"traceback {ms['gotoh_traceback'][0]:.3f} ms (plain "
+          f"{ms['gotoh_traceback'][1]:.1f}) ({card})", flush=True)
+
+
+def run_cyclize(device, card, table, errs):
+    """Phase 17 (--cyclize): the megabase pair through the CLI on the card
+    with mbpair_cyc.cfg (-c, the polish's three settings at none): the GFA
+    byte-identical to the JAX CLI's and every side file's sha256 the
+    record's; the bonding stitches' Gotoh launches counted apart from the
+    pair's; then a -R restart with the largest subproblem file deleted
+    (core.restart_bonds); then the Gotoh kernels held against their plain
+    versions on the pair's dispatches and on seq1's bonding stitches'
+    (seq2's are held by --cyclize-pool: all 25 bonds' plain versions take
+    about 9 minutes on an H100, beside a run of about 8). Returns the
+    counts of the path's run."""
+    import tempfile
+    import torch
+    from centrolign_tpu_torch import metrics
+
+    ref, ref_gfa = cyclize_reference()
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta, meta = unpack_mbpair(tmp)
+        print(f"mbpair.fasta: {meta['names']} of {meta['lengths']} bp, "
+              f"sha256 {meta['sha256']} as recorded", flush=True)
+        out = os.path.join(tmp, "out")
+        os.mkdir(out)
+        cfg = cyclize_config(os.path.join(tmp, "cyc.cfg"), fasta, out)
+        argv = ["-C", cfg, "--force-gfa-output"]
+        log = io.StringIO()
+        with recording() as (dispatched, _, stitches):
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            rc, gfa, wall = run_cli(argv, log)
+            got = counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        require(rc == 0, f"cli.main returned {rc} on the megabase pair "
+                f"with -c: {log.getvalue()[-2000:]}")
+        same_text(gfa, ref_gfa, "the megabase pair's GFA with -c")
+        same_side_files(side_files(out), ref["side_files"],
+                        "the megabase pair with -c")
+        require("Identified 0 local regions" in log.getvalue(),
+                "the polish found regions to realign")
+        jobs = cyclize_jobs(dispatched, stitches)
+        fills = sum(st["fills"] for st in stitches)
+        tracebacks = sum(st["tracebacks"] for st in stitches)
+        bond_ids = [i for st in stitches for i in st["dispatches"]]
+        pair_ids = [i for i in range(len(dispatched)) if i not in bond_ids]
+        split = stage_split(log.getvalue())
+        found = [r["found"] for r in split["bonding"]]
+        rounds = {}
+        for r in split["bonding"]:
+            rounds.setdefault(r["sequence"], []).append(r["found"])
+        require(rounds == ref["bonds"] and len(stitches) == sum(found),
+                f"{len(stitches)} internal stitches; the log's rounds found "
+                f"{rounds} tandem duplications, the record's "
+                f"{ref['bonds']}")
+        require(fills > 0 and tracebacks > 0, f"the internal stitches "
+                f"launched {fills} fills and {tracebacks} tracebacks")
+        require(got["gotoh_fill"] > fills and
+                got["gotoh_traceback"] > tracebacks,
+                f"the pair launched no Gotoh kernel: {got}")
+        bond_jobs = sum(len(dispatched[i]) for i in bond_ids)
+        pair_jobs = sum(len(dispatched[i]) for i in pair_ids)
+        print(f"mbpair.fasta with -c: GFA byte-identical to the reference "
+              f"({len(gfa)} B), {len(ref['side_files'])} side files' "
+              f"sha256 as recorded; wall {wall:.3f} s; {len(stitches)} "
+              f"internal stitches dispatched {bond_jobs} jobs in "
+              f"{len(bond_ids)} dispatches ({fills} fill and {tracebacks} "
+              f"traceback launches), the pair {pair_jobs} jobs in "
+              f"{len(pair_ids)} dispatches ({got['gotoh_fill'] - fills} and "
+              f"{got['gotoh_traceback'] - tracebacks}); launches "
+              f"{json.dumps(got)}; max_memory_allocated {peak} B ({card})",
+              flush=True)
+        print("mbpair.fasta with -c, aligner counters: "
+              + json.dumps(metrics.summary()), flush=True)
+        for k, st in enumerate(stitches):
+            print_dispatches(f"bond {k + 1}", [dispatched[i]
+                                               for i in st["dispatches"]],
+                             card)
+        print_dispatches("mbpair.fasta with -c, the pair",
+                         [dispatched[i] for i in pair_ids], card)
+        print_stages("mbpair.fasta with -c", split, card)
+
+        # the restart: the root's file deleted, the bonds read back from
+        # cp_bonds.txt (core.restart_bonds), so no bonding round runs
+        cps = [n for n in os.listdir(out) if n.endswith(".gfa")]
+        largest = max(cps, key=lambda n: os.path.getsize(
+            os.path.join(out, n)))
+        os.remove(os.path.join(out, largest))
+        before = side_files(out)
+        argv = ["-C", cyclize_config(os.path.join(tmp, "restart.cfg"), fasta,
+                                     out, restart=True),
+                "--force-gfa-output"]
+        rlog = io.StringIO()
+        with recording() as (_, _, restart_stitches):
+            reset_counts()
+            rc, again, restart_wall = run_cli(argv, rlog)
+            restart_got = counts()
+        require(rc == 0, f"cli.main returned {rc} on the restart: "
+                f"{rlog.getvalue()[-2000:]}")
+        same_text(again, ref_gfa, "the megabase pair's GFA after a -R "
+                  "restart")
+        after = side_files(out)
+        require(after[largest] == ref["side_files"][largest],
+                f"the restart wrote {largest} as {after[largest]}, want "
+                f"{ref['side_files'][largest]}")
+        # -s and cp_info.txt are appended to by every run
+        kept = [n for n in before if n != largest and n != "sub.txt"
+                and not n.endswith("_info.txt")]
+        require(all(after[n] == before[n] for n in kept),
+                "the restart changed a side file it does not write")
+        require(not restart_stitches and "Beginning round"
+                not in rlog.getvalue(), "the restart ran bonding rounds")
+        print(f"mbpair.fasta with -c, -R restart without {largest}: GFA "
+              f"byte-identical, {largest} rewritten as recorded; wall "
+              f"{restart_wall:.3f} s; launches {json.dumps(restart_got)} "
+              f"({card})", flush=True)
+        print_stages("mbpair.fasta with -c, restarted",
+                     stage_split(rlog.getvalue()), card)
+
+    # every launch of the pair's and of seq1's bonds
+    here = compare_path_gotoh([dispatched[i] for i in pair_ids],
+                              got["gotoh_fill"] - fills, device, table, errs)
+    print(f"mbpair.fasta with -c, the pair's jobs: bit-equal, fill "
+          f"{here['gotoh_fill'][0]:.3f} ms (plain "
+          f"{here['gotoh_fill'][1]:.1f}), traceback "
+          f"{here['gotoh_traceback'][0]:.3f} ms (plain "
+          f"{here['gotoh_traceback'][1]:.1f}) over {len(pair_ids)} "
+          f"dispatches ({card})", flush=True)
+    # seq2's bonds are held by --cyclize-pool: all 25 do not fit here
+    n1 = sum(rounds[meta["names"][0]])
+    hold_bonds("mbpair.fasta with -c", stitches[:n1], dispatched, 0, device,
+               table, errs, card)
+    print(f"mbpair.fasta with -c: bonds {n1 + 1}-{len(stitches)} "
+          f"({meta['names'][1]}'s) are held in --cyclize-pool", flush=True)
+    for name in ("gotoh_fill", "gotoh_traceback"):
+        k = table[name]
+        print(f"mbpair.fasta with -c, {name}: kernel {k['ms']:.3f} ms, "
+              f"plain {k['plain_ms']:.1f} ms, bound "
+              f"{k['work'].bound()[0]:.6f} ms ({k['work'].bound()[1]}) "
+              f"({card})", flush=True)
+    with open(MBPAIR_CYC_JOBS) as f:
+        want_jobs = json.load(f)
+    with open(MBPAIR_JOBS) as f:
+        mbpair_jobs = json.load(f)["dispatches"]
+    require(jobs == {k: want_jobs[k] for k in ("bonding", "pair")},
+            "the chain jobs differ from mbpair_cyc_jobs.json's")
+    require(jobs["pair"] == mbpair_jobs, "the pair's chain jobs differ from "
+            "mbpair_jobs.json's (phase 15)")
+    return got
+
+
+class RecordingPool:
+    """A process pool that records each task submitted to it: `tasks`
+    holds (function, arguments, future)."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.tasks = []
+
+    def submit(self, fn, *args):
+        fut = self.pool.submit(fn, *args)
+        self.tasks.append((fn, args, fut))
+        return fut
+
+
+def run_cyclize_pool(device, card, table, errs):
+    """--cyclize-pool: phase 17's run with --hosts 2 over the pool
+    executor, both workers on the card: calibration, then one leaf's
+    bonding rounds a worker, then the pair in this process. The GFA and
+    every side file as in the record, each worker's bonding launched both
+    Gotoh kernels, no task recomputed here. Then seq2's bonding task runs
+    again in this process under recording(), its bonds equal to the
+    worker's and its jobs mbpair_cyc_jobs.json's, and the Gotoh kernels
+    are held against their plain versions on its dispatches (the bonds
+    --cyclize leaves out). Returns the launches of the workers and of
+    this process's run."""
+    import pickle
+    import tempfile
+    from centrolign_tpu_torch.parallel import counters as pcounters
+    from centrolign_tpu_torch.parallel import scheduler
+
+    ref, ref_gfa = cyclize_reference()
+    snaps = []
+    merge = pcounters.merge
+    worker_pool = scheduler._worker_pool
+    pools = []
+
+    def recording_merge(snap):
+        snaps.append(dict(snap))
+        merge(snap)
+
+    def recording_pool(n_hosts):
+        pools.append(RecordingPool(worker_pool(n_hosts)))
+        return pools[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta, _ = unpack_mbpair(tmp)
+        out = os.path.join(tmp, "out")
+        os.mkdir(out)
+        cfg = cyclize_config(os.path.join(tmp, "cyc.cfg"), fasta, out)
+        pcounters.MERGED.clear()
+        pcounters.DEVICES.clear()
+        recovered = scheduler.RECOVERED
+        log = io.StringIO()
+        pcounters.merge = recording_merge
+        scheduler._worker_pool = recording_pool
+        try:
+            with recording() as (dispatched, _, stitches):
+                reset_counts()
+                rc, gfa, wall = run_cli(
+                    ["-C", cfg, "--force-gfa-output", "--hosts", "2"], log)
+                got = counts()
+        finally:
+            pcounters.merge = merge
+            scheduler._worker_pool = worker_pool
+            if scheduler._pool is not None:
+                scheduler._pool.shutdown()
+                scheduler._pool = None
+        require(rc == 0, f"cli.main returned {rc} on the megabase pair "
+                f"with -c --hosts 2: {log.getvalue()[-2000:]}")
+        same_text(gfa, ref_gfa, "the megabase pair's GFA with -c --hosts 2")
+        same_side_files(side_files(out), ref["side_files"],
+                        "the megabase pair with -c --hosts 2")
+    require(scheduler.RECOVERED == recovered,
+            "a pool worker failed and was recomputed in this process")
+    require(not pcounters.FOREIGN, f"a worker imported modules of jax or "
+            f"the JAX package: {sorted(pcounters.FOREIGN)[:5]}")
+    require(pcounters.DEVICES == {str(device)},
+            f"pool workers ran on {sorted(map(str, pcounters.DEVICES))}")
+    require(not stitches, "an internal stitch ran in this process")
+    # the snapshots come back in order: seq1's calibration (seq2's runs
+    # here), then one leaf's bonding rounds from each worker
+    keys = ("gotoh_cuda.FILL_LAUNCHES", "gotoh_cuda.TRACEBACK_LAUNCHES",
+            "gotoh_cuda.DISPATCHED_JOBS")
+    workers = [{k: s[k] for k in keys} for s in snaps]
+    require(len(snaps) == 3 and all(w[k] > 0 for w in workers[1:]
+                                    for k in keys),
+            f"the workers' tasks launched {workers}")
+    print(f"mbpair.fasta with -c --hosts 2 (pool, 2 workers on the card): "
+          f"GFA byte-identical to the reference, {len(ref['side_files'])} "
+          f"side files' sha256 as recorded; wall {wall:.3f} s; the "
+          f"workers' tasks (calibration of seq1, bonding of seq1, bonding "
+          f"of seq2) launched {json.dumps(workers)}; this process "
+          f"{json.dumps(got)}; no task recomputed ({card})", flush=True)
+
+    # seq2's bonding task again, here (the pair's dispatches, those of the
+    # serial run, are held in --cyclize)
+    tasks = [(args, fut) for p in pools for fn, args, fut in p.tasks
+             if fn is scheduler._worker_leaf_bonds]
+    require(len(tasks) == 2, f"{len(tasks)} bonding tasks went to the pool")
+    args, fut = tasks[1]
+    with recording() as (bond_dispatched, _, bond_stitches):
+        reset_counts()
+        t0 = time.perf_counter()
+        again = scheduler._worker_leaf_bonds(*args)
+        replay_wall = time.perf_counter() - t0
+        replay_got = counts()
+    require(pickle.dumps(pickle.loads(again)[0])
+            == pickle.dumps(pickle.loads(fut.result())[0]),
+            "seq2's bonds run here differ from its worker's")
+    n1 = sum(ref["bonds"]["seq1"])
+    print(f"mbpair.fasta with -c, seq2's bonding task again in this "
+          f"process: its bonds equal the worker's; wall {replay_wall:.3f} "
+          f"s; {len(bond_stitches)} internal stitches, launches "
+          f"{json.dumps(replay_got)} ({card})", flush=True)
+    hold_bonds("mbpair.fasta with -c, seq2's bonding task", bond_stitches,
+               bond_dispatched, n1, device, table, errs, card)
+    with open(MBPAIR_CYC_JOBS) as f:
+        want_jobs = json.load(f)
+    with open(MBPAIR_JOBS) as f:
+        mbpair_jobs = json.load(f)["dispatches"]
+    require(cyclize_jobs(bond_dispatched, bond_stitches)
+            == {"bonding": want_jobs["bonding"][n1:], "pair": []},
+            "seq2's bonding jobs differ from mbpair_cyc_jobs.json's")
+    bond_jobs = sum(len(d) for bond in want_jobs["bonding"] for d in bond)
+    require(sum(w[keys[2]] for w in workers) == bond_jobs,
+            f"the workers dispatched {[w[keys[2]] for w in workers]} jobs, "
+            f"mbpair_cyc_jobs.json's bonds {bond_jobs}")
+    require(cyclize_jobs(dispatched, stitches)["pair"] == mbpair_jobs,
+            "the pair's chain jobs differ from mbpair_jobs.json's")
+    return {name: got[name] + sum(w[key] for w in workers)
+            for name, key in (("gotoh_fill", keys[0]),
+                              ("gotoh_traceback", keys[1]))}
 
 
 # ---------------------------------------------------------------------------
@@ -2628,19 +3071,27 @@ def run_cli(argv, log=None):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), err:
         rc = cli.main(argv)
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return rc, out.getvalue(), time.perf_counter() - t0
 
 
 @contextlib.contextmanager
 def recording():
     """The stitcher's two device entries wrapped to record each call's
-    jobs: yields (chain dispatches, DAG flushes), lists of job lists."""
+    jobs, and its internal stitch (-c's bonds) to record which of them it
+    made: yields (chain dispatches, DAG flushes, internal stitches); the
+    first two are lists of job lists, the third holds a dict per
+    internal_stitch call: "dispatches", the indices of its chain
+    dispatches, and "fills" and "tracebacks", the Gotoh launches the
+    wrappers counted during it."""
     from centrolign_tpu_torch import stitcher as stitcher_mod
+    from centrolign_tpu_torch.ops import gotoh_cuda as gc
 
-    chain, dag = [], []
+    chain, dag, stitches = [], [], []
     dispatch, dag_batch = stitcher_mod.gotoh_dispatch, \
         stitcher_mod.popoa_dag_batch
+    internal_stitch = stitcher_mod.Stitcher.internal_stitch
 
     def recording_dispatch(jobs, dev):
         chain.append(list(jobs))
@@ -2650,28 +3101,54 @@ def recording():
         dag.append(list(jobs))
         return dag_batch(jobs, dev)
 
+    def recording_internal_stitch(self, *args, **kw):
+        first = len(chain)
+        fills, tracebacks = gc.FILL_LAUNCHES, gc.TRACEBACK_LAUNCHES
+        try:
+            return internal_stitch(self, *args, **kw)
+        finally:
+            stitches.append({
+                "dispatches": list(range(first, len(chain))),
+                "fills": gc.FILL_LAUNCHES - fills,
+                "tracebacks": gc.TRACEBACK_LAUNCHES - tracebacks})
+
     stitcher_mod.gotoh_dispatch = recording_dispatch
     stitcher_mod.popoa_dag_batch = recording_dag_batch
+    stitcher_mod.Stitcher.internal_stitch = recording_internal_stitch
     try:
-        yield chain, dag
+        yield chain, dag, stitches
     finally:
         stitcher_mod.gotoh_dispatch = dispatch
         stitcher_mod.popoa_dag_batch = dag_batch
+        stitcher_mod.Stitcher.internal_stitch = internal_stitch
 
 
 # ---------------------------------------------------------------------------
-# the stage split of a run's wall (phases 15-16), from the elapsed stamps
+# the stage split of a run's wall (phases 15-17), from the elapsed stamps
 # of the CLI's own log at -v 3 (centrolign_tpu_torch/logging.py: 0.1 s
 # resolution)
 
 STAMP = re.compile(r"^\[centrolign_tpu\] elapsed: (\d+):(\d\d):(\d\d\.\d) "
                    r"(.*)$")
 NEXT_SUBPROBLEM = "Next subproblem contains sequences"
+# -c: each bonding round of a leaf (core.py::leaf_bond_alignments) chains
+# the leaf against itself with its self-matches masked, then stitches each
+# tandem duplication it found; after the MSA the root is cyclized and
+# polished (core.py::apply_bonds)
+BOND_ROUND = "Beginning round "
+BOND_FOUND = "Found "
+CYCLIZE = "Cyclizing the final graph"
+POLISH = "Polishing inconsistencies"
+ROUND = re.compile(r"Beginning round (\d+) of tandem duplication detection "
+                   r"for sequence (.*)\.$")
+FOUND = re.compile(r"Found (\d+) tandem duplications in this round\.$")
 # a message that starts a stage (its prefix) -> the stage; an unlisted
 # message continues the stage before it
 STAGE_MARKS = (
     ("Initializing leaf subproblems", "setup"),
     ("Calibrating scale of anchoring parameters", "calibration"),
+    (BOND_ROUND, "bond_chain"),
+    (BOND_FOUND, "bond_stitch"),
     ("Beginning MSA", "setup"),
     # sentinel reassignment, then match finding (core.py::prepare_pair_step)
     (NEXT_SUBPROBLEM, "match"),
@@ -2680,6 +3157,8 @@ STAGE_MARKS = (
     ("Chained ", "partition"),
     ("Partitioned into ", "stitch"),
     ("Fusing MSAs", "fuse"),
+    (CYCLIZE, "cyclize"),
+    (POLISH, "polish"),
     ("Peak memory usage", "end"),
     ("Maximum memory usage", "end"),
     ("Run completed", "end"),
@@ -2690,17 +3169,26 @@ SUBPROBLEM_STAGES = ("match", "reach_chain", "partition", "stitch", "fuse")
 # would go to the stage before it
 SUBPROBLEM_MARKS = tuple(p for p, name in STAGE_MARKS
                          if name in SUBPROBLEM_STAGES and p != NEXT_SUBPROBLEM)
+# the -c messages whose loss stage_split refuses: a round's start and the
+# count that ends its chaining, the cyclizing and the polish after it
+CYCLIZE_MARKS = (BOND_ROUND, BOND_FOUND, CYCLIZE, POLISH)
 
 
 def stage_split(log):
     """Seconds of each stage in a CLI log written at -v 3: "setup" (leaf
     subproblems, up to calibration and between calibration and the first
-    subproblem), "calibration", one dict per subproblem ("sequences": its
-    leaves, and the SUBPROBLEM_STAGES: match finding, reachability plus
-    chaining, partition, stitch, fuse) and "end" (from the memory report
+    subproblem), "calibration", with -c one dict per bonding round
+    ("bonding": its "sequence", "round", the tandem duplications "found",
+    and the seconds of its masked self-chaining, "chain", and of its
+    internal stitches, "stitch"), one dict per subproblem ("sequences":
+    its leaves, and the SUBPROBLEM_STAGES: match finding, reachability
+    plus chaining, partition, stitch, fuse), with -c "cyclize" (the bonds
+    fused into the root) and "polish", and "end" (from the memory report
     on). Each interval between two stamps goes to the stage the first of
     them started. The stamps have 0.1 s resolution. Raises ValueError
-    when a subproblem lacks one of the SUBPROBLEM_MARKS."""
+    when a subproblem lacks one of the SUBPROBLEM_MARKS, a bonding round
+    its start or its count, cyclizing its polish, or a run whose rounds
+    found tandem duplications its cyclizing."""
     events = []  # [tenths of a second, message, continuation lines]
     for line in log.splitlines():
         m = STAMP.match(line)
@@ -2710,17 +3198,36 @@ def stage_split(log):
             events.append([tenths, msg, []])
         elif events and line.startswith("\t"):
             events[-1][2].append(line.strip())
-    split = {"setup": 0, "calibration": 0, "subproblems": [], "end": 0}
+    split = {"setup": 0, "calibration": 0, "bonding": [], "subproblems": [],
+             "cyclize": 0, "polish": 0, "end": 0}
     seen = []  # the SUBPROBLEM_MARKS each subproblem logged
     stage = "setup"
     for k, (t, msg, names) in enumerate(events):
         for prefix, name in STAGE_MARKS:
             if msg.startswith(prefix):
+                if stage == "bond_chain" and name != "bond_stitch":
+                    raise ValueError(f"bonding round {len(split['bonding'])} "
+                                     f"of the log has no message starting "
+                                     f"with {BOND_FOUND!r}")
+                if stage == "cyclize" and name != "polish":
+                    raise ValueError(f"the log has no message starting with "
+                                     f"{POLISH!r} after {CYCLIZE!r}")
                 if prefix == NEXT_SUBPROBLEM:
                     split["subproblems"].append(
                         {"sequences": names,
                          **{s_: 0 for s_ in SUBPROBLEM_STAGES}})
                     seen.append(set())
+                elif prefix == BOND_ROUND:
+                    rnd, seq = ROUND.match(msg).groups()
+                    split["bonding"].append(
+                        {"sequence": seq, "round": int(rnd), "found": 0,
+                         "chain": 0, "stitch": 0})
+                elif prefix == BOND_FOUND:
+                    if stage != "bond_chain":
+                        raise ValueError(f"{msg!r} in the log follows no "
+                                         f"message starting with "
+                                         f"{BOND_ROUND!r}")
+                    split["bonding"][-1]["found"] = int(FOUND.match(msg)[1])
                 elif seen:
                     seen[-1].add(prefix)
                 stage = name
@@ -2730,27 +3237,51 @@ def stage_split(log):
         dt = events[k + 1][0] - t
         if stage in SUBPROBLEM_STAGES and split["subproblems"]:
             split["subproblems"][-1][stage] += dt
+        elif stage in ("bond_chain", "bond_stitch"):
+            split["bonding"][-1][stage[5:]] += dt
         else:
             split[stage] += dt
+    if stage == "bond_chain":
+        raise ValueError(f"bonding round {len(split['bonding'])} of the log "
+                         f"has no message starting with {BOND_FOUND!r}")
+    if stage == "cyclize":
+        raise ValueError(f"the log has no message starting with {POLISH!r} "
+                         f"after {CYCLIZE!r}")
+    if any(r["found"] for r in split["bonding"]) and not any(
+            msg.startswith(CYCLIZE) for _, msg, _ in events):
+        raise ValueError(f"the log's bonding rounds found tandem "
+                         f"duplications but it has no message starting "
+                         f"with {CYCLIZE!r}")
     for k, marks in enumerate(seen):
         missing = [p for p in SUBPROBLEM_MARKS if p not in marks]
         if missing:
             raise ValueError(f"subproblem {k + 1} of the log has no message "
                              f"starting with {missing}")
-    for part in (split, *split["subproblems"]):
+    for part in (split, *split["bonding"], *split["subproblems"]):
         for key, v in part.items():
-            if isinstance(v, int):
+            if isinstance(v, int) and key not in ("round", "found"):
                 part[key] = v / 10
     return split
 
 
 def print_stages(label, split, card):
-    """One line for the run's stages outside the subproblems, one per
-    subproblem."""
+    """One line for the run's stages outside the subproblems and the
+    bonding rounds, one per bonding round, one per subproblem."""
+    rounds = split["bonding"]
     print(f"{label} stage split (s, from the CLI log's 0.1 s stamps): setup "
           f"{split['setup']:.1f}, calibration {split['calibration']:.1f}, "
-          f"end {split['end']:.1f}; {len(split['subproblems'])} "
-          f"subproblems ({card})", flush=True)
+          f"bonding {sum(r['chain'] + r['stitch'] for r in rounds):.1f} "
+          f"({len(rounds)} rounds: masked self-chaining "
+          f"{sum(r['chain'] for r in rounds):.1f}, internal stitches "
+          f"{sum(r['stitch'] for r in rounds):.1f}), cyclize "
+          f"{split['cyclize']:.1f}, polish {split['polish']:.1f}, end "
+          f"{split['end']:.1f}; {len(split['subproblems'])} subproblems "
+          f"({card})", flush=True)
+    for r in rounds:
+        print(f"  bonding round {r['round']} of {r['sequence']}: "
+              f"{r['found']} tandem duplications; masked self-chaining "
+              f"{r['chain']:.1f}, internal stitches {r['stitch']:.1f}",
+              flush=True)
     for k, sub in enumerate(split["subproblems"]):
         stages = ", ".join(f"{s_} {sub[s_]:.1f}" for s_ in SUBPROBLEM_STAGES)
         total = sum(sub[s_] for s_ in SUBPROBLEM_STAGES)
@@ -2923,7 +3454,7 @@ def main() -> int:
     os.environ["CENTROLIGN_TORCH_DEVICE"] = "cuda"
     os.environ.pop("CENTROLIGN_TORCH_DEVICE_MIN_CELLS", None)
     os.environ.pop("CENTROLIGN_TORCH_DEVICE_DAG", None)
-    with recording() as (dispatched, _):
+    with recording() as (dispatched, _, _):
         torch.cuda.reset_peak_memory_stats(device)
         reset_counts()
         rc, out, wall = run_cli(["-v", "0", PAIR])
@@ -2960,7 +3491,7 @@ def main() -> int:
     # 5. the MSA path
     os.environ["CENTROLIGN_TORCH_DEVICE_DAG"] = "1"
     log = io.StringIO()
-    with recording() as (dispatched, dag_dispatched):
+    with recording() as (dispatched, dag_dispatched, _):
         torch.cuda.reset_peak_memory_stats(device)
         reset_counts()
         rc, out, wall = run_cli(["-v", "3", "-T", FIVE_TREE, FIVE], log)
@@ -3156,7 +3687,7 @@ def main() -> int:
     from centrolign_tpu_torch.native import popoa_align
 
     os.environ["CENTROLIGN_TORCH_DEVICE_MIN_CELLS"] = "10000"
-    with recording() as (dispatched, _):
+    with recording() as (dispatched, _, _):
         reset_counts()
         rc, out, _ = run_cli(["-v", "0", PAIR])
     os.environ.pop("CENTROLIGN_TORCH_DEVICE_MIN_CELLS")
@@ -3279,7 +3810,12 @@ if __name__ == "__main__":
                  "--mbpair-chaining", mbpair_chaining,
                  ("chain_cdq_scan", "chain_scan_event")),
              "--ten": lambda: own_run(
-                 "--ten", run_ten, ("popoa_dag_fill", "popoa_dag_traceback"))}
+                 "--ten", run_ten, ("popoa_dag_fill", "popoa_dag_traceback")),
+             "--cyclize": lambda: own_run(
+                 "--cyclize", run_cyclize, ("gotoh_fill", "gotoh_traceback")),
+             "--cyclize-pool": lambda: own_run(
+                 "--cyclize-pool", run_cyclize_pool,
+                 ("gotoh_fill", "gotoh_traceback"))}
     try:
         rc = modes[sys.argv[1]]() if sys.argv[1:] else main()
     except LaunchTimeout as err:

@@ -64,6 +64,11 @@ def _torch_ref(name):
 # one list of (V1, V2) a dispatch
 MBPAIR_JOBS = [[tuple(s) for s in d]
                for d in _torch_ref("mbpair_jobs.json")["dispatches"]]
+# the chain jobs of its 25 bonding stitches with -c (mbpair_cyc.cfg), one
+# list a dispatch
+MBPAIR_CYC_JOBS = [[tuple(s) for s in d]
+                   for bond in _torch_ref("mbpair_cyc_jobs.json")["bonding"]
+                   for d in bond]
 
 
 def _port(jobs):
@@ -187,10 +192,13 @@ def _edge_shapes():
 
 
 @pytest.mark.parametrize("shapes", [PAIR_JOBS, *FIVE_JOBS, *MBPAIR_JOBS,
+                                    *MBPAIR_CYC_JOBS,
                                     _edge_shapes(), [(4356, 3330)],
                                     [(7, 5)] * 200, [(5000, 4000)] * 20],
                          ids=["pair", *(f"five{k}" for k in range(5)),
                               *(f"mbpair{k}" for k in range(len(MBPAIR_JOBS))),
+                              *(f"mbpair_cyc{k}"
+                                for k in range(len(MBPAIR_CYC_JOBS))),
                               "edges", "one_wide", "many_small",
                               "many_wide"])
 @pytest.mark.parametrize("cluster_min_lanes", [gc.CLUSTER_MIN_LANES, 0,

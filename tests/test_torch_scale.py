@@ -164,7 +164,8 @@ def test_stage_split_of_a_fixed_log():
          "fuse": 0.4},
     ]
     assert chip_smoke.stage_split("") == {
-        "setup": 0.0, "calibration": 0.0, "subproblems": [], "end": 0.0}
+        "setup": 0.0, "calibration": 0.0, "bonding": [], "subproblems": [],
+        "cyclize": 0.0, "polish": 0.0, "end": 0.0}
 
 
 @pytest.mark.parametrize("mark", chip_smoke.SUBPROBLEM_MARKS)
