@@ -18,6 +18,7 @@ import os
 import sys
 
 from . import logging as logmod
+from . import metrics
 from .alignment import explicit_cigar
 from .core import Core
 from .device import resolve_device
@@ -59,6 +60,47 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    with metrics.span("job"):
+        with metrics.span("setup"):
+            job = _setup(argv)
+        if isinstance(job, int):
+            return job
+        args, params, core, seq_names, n_hosts = job
+        if core is None:
+            return _run_ranks(params, n_hosts)
+        if n_hosts > 1:
+            from .parallel.scheduler import distributed_execute
+            distributed_execute(core, n_hosts)
+        else:
+            core.execute()
+
+        with metrics.span("output"):
+            root = core.root_subproblem()
+            if len(seq_names) == 2 and not args.force_gfa_output:
+                leaf1 = core.leaf_subproblem(seq_names[0])
+                leaf2 = core.leaf_subproblem(seq_names[1])
+                sys.stdout.write(explicit_cigar(
+                    root.alignment, leaf1.graph.labels, leaf2.graph.labels)
+                    + "\n")
+            else:
+                write_gfa(root.graph, root.tableau, sys.stdout)
+
+        max_mem = max_memory_usage()
+        if max_mem < 0:
+            logmod.log(logmod.Basic, "Failed to measure memory usage.")
+        else:
+            logmod.log(logmod.Basic,
+                       "Maximum memory usage: "
+                       + format_memory_usage(max_mem) + ".")
+        logmod.log(logmod.Minimal, "Run completed successfully, exiting.")
+        return 0
+
+
+def _setup(argv):
+    """The arguments, FASTA, tree and Core of a run, with its leaf
+    subproblems (and any -R checkpoints) loaded: (args, params, core,
+    sequence names, hosts), core None for a run over torch.distributed
+    ranks; or the exit code of a run that ends here."""
     args = build_argparser().parse_args(argv)
 
     params = Parameters()
@@ -156,19 +198,9 @@ def main(argv=None) -> int:
 
     if n_hosts > 1 and len(seq_names) > 2 and os.environ.get(
             "CENTROLIGN_TPU_EXECUTOR", "pool") == "jaxdist":
-        # one process per host under torch.distributed, subproblem GFAs
-        # exchanged through all-gathers (parallel/multiprocess.py). The
-        # ranks re-derive everything (Core, any -R checkpoint replay), so
-        # the parent does neither; rank 0's output is printed here.
-        import tempfile
-        from .parallel.multiprocess import run_multiprocess_msa
-        with tempfile.NamedTemporaryFile(suffix=".gfa") as tmp:
-            run_multiprocess_msa(n_hosts, params.get("fasta_name"),
-                                 params.get("tree_name") or None,
-                                 tmp.name, params=params)
-            with open(tmp.name) as f:
-                sys.stdout.write(f.read())
-        return 0
+        # the ranks re-derive everything (Core, any -R checkpoint replay),
+        # so the parent does neither
+        return args, params, None, seq_names, n_hosts
 
     core = Core(parsed, tree, device)
     if len(seq_names) == 2:
@@ -176,30 +208,21 @@ def main(argv=None) -> int:
     params.apply(core)
     if params.get("restart"):
         core.restart()
-    if n_hosts > 1:
-        from .parallel.scheduler import distributed_execute
-        distributed_execute(core, n_hosts)
-    else:
-        core.execute()
+    return args, params, core, seq_names, n_hosts
 
-    if len(seq_names) == 2 and not args.force_gfa_output:
-        root = core.root_subproblem()
-        leaf1 = core.leaf_subproblem(seq_names[0])
-        leaf2 = core.leaf_subproblem(seq_names[1])
-        sys.stdout.write(explicit_cigar(
-            root.alignment, leaf1.graph.labels, leaf2.graph.labels) + "\n")
-    else:
-        root = core.root_subproblem()
-        write_gfa(root.graph, root.tableau, sys.stdout)
 
-    max_mem = max_memory_usage()
-    if max_mem < 0:
-        logmod.log(logmod.Basic, "Failed to measure memory usage.")
-    else:
-        logmod.log(logmod.Basic,
-                   "Maximum memory usage: " + format_memory_usage(max_mem)
-                   + ".")
-    logmod.log(logmod.Minimal, "Run completed successfully, exiting.")
+def _run_ranks(params, n_hosts: int) -> int:
+    """One process per host under torch.distributed, subproblem GFAs
+    exchanged through all-gathers (parallel/multiprocess.py); rank 0's
+    output is printed here."""
+    import tempfile
+    from .parallel.multiprocess import run_multiprocess_msa
+    with tempfile.NamedTemporaryFile(suffix=".gfa") as tmp:
+        run_multiprocess_msa(n_hosts, params.get("fasta_name"),
+                             params.get("tree_name") or None,
+                             tmp.name, params=params)
+        with open(tmp.name) as f:
+            sys.stdout.write(f.read())
     return 0
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import logging as logmod
+from . import metrics
 from .utils.memory import log_memory_usage
 from .anchorer import Anchorer, ChainAlgorithm
 from .alignment import fuse, internal_fuse, cigar as cigar_of
@@ -49,27 +50,29 @@ def prepare_pair_step(sub1, sub2, max_count, score_function,
     scale-free; the scale enters only at anchoring), so the multi-host
     scheduler overlaps this work with calibration. Returns
     (matches, xm1, xm2, merge_cls)."""
-    reassign_sentinels(sub1.graph, sub1.tableau, 5, 6)
-    reassign_sentinels(sub2.graph, sub2.tableau, 7, 8)
-    logmod.log(logmod.Verbose, "Finding matches.")
-    if match_finder is None:
-        matches = find_matches(sub1.graph, sub2.graph,
-                               sub1.tableau, sub2.tableau,
-                               max_count, score_function)
-    else:
-        matches = match_finder.find_matches(
-            sub1.graph, sub2.graph, sub1.tableau, sub2.tableau)
-    logmod.log(logmod.Verbose, "Computing reachability.")
-    # memory tier selection (reference core.hpp:310-327, replicating its
-    # total-size expression): bit-packed tables above the restraint
-    from .path_merge import PackedPathMerge
-    total_size = (sub1.graph.node_size * sub1.graph.path_size
-                  + sub2.graph.node_size + sub2.graph.path_size)
-    merge_cls = (PackedPathMerge if total_size > memory_restraint_size
-                 else PathMerge)
-    xm1 = merge_cls(sub1.graph, sub1.tableau)
-    xm2 = merge_cls(sub2.graph, sub2.tableau)
-    log_memory_usage(logmod.Debug)
+    with metrics.span("match"):
+        reassign_sentinels(sub1.graph, sub1.tableau, 5, 6)
+        reassign_sentinels(sub2.graph, sub2.tableau, 7, 8)
+        logmod.log(logmod.Verbose, "Finding matches.")
+        if match_finder is None:
+            matches = find_matches(sub1.graph, sub2.graph,
+                                   sub1.tableau, sub2.tableau,
+                                   max_count, score_function)
+        else:
+            matches = match_finder.find_matches(
+                sub1.graph, sub2.graph, sub1.tableau, sub2.tableau)
+    with metrics.span("reach"):
+        logmod.log(logmod.Verbose, "Computing reachability.")
+        # memory tier selection (reference core.hpp:310-327, replicating
+        # its total-size expression): bit-packed tables above the restraint
+        from .path_merge import PackedPathMerge
+        total_size = (sub1.graph.node_size * sub1.graph.path_size
+                      + sub2.graph.node_size + sub2.graph.path_size)
+        merge_cls = (PackedPathMerge if total_size > memory_restraint_size
+                     else PathMerge)
+        xm1 = merge_cls(sub1.graph, sub1.tableau)
+        xm2 = merge_cls(sub2.graph, sub2.tableau)
+        log_memory_usage(logmod.Debug)
     return matches, xm1, xm2, merge_cls
 
 
@@ -89,24 +92,27 @@ def pairwise_align_step(sub1, sub2, max_count, score_function, anchorer,
             sub1, sub2, max_count, score_function, match_finder,
             memory_restraint_size)
     matches, xm1, xm2, merge_cls = prepared
-    anchors = anchorer.anchor_chain(
-        matches, sub1.graph, sub2.graph, sub1.tableau, sub2.tableau,
-        xm1, xm2)
+    with metrics.span("chain"):
+        anchors = anchorer.anchor_chain(
+            matches, sub1.graph, sub2.graph, sub1.tableau, sub2.tableau,
+            xm1, xm2)
     logmod.log(logmod.Verbose, f"Chained {len(anchors)} anchors.")
-    segments = partitioner.partition_anchors(
-        anchors, sub1.graph, sub2.graph, sub1.tableau, sub2.tableau,
-        xm1, xm2, not is_main_execution)
+    with metrics.span("partition"):
+        segments = partitioner.partition_anchors(
+            anchors, sub1.graph, sub2.graph, sub1.tableau, sub2.tableau,
+            xm1, xm2, not is_main_execution)
     logmod.log(logmod.Verbose,
                f"Partitioned into {len(segments)} alignable segments; "
                "stitching.")
-    segments = [stitcher.despecify_indel_breakpoints(seg)
-                for seg in segments]
-    aln = stitcher.stitch(
-        segments, sub1.graph, sub2.graph, sub1.tableau, sub2.tableau,
-        xm1, xm2)
-    if merge_cls is PackedPathMerge:
-        xm1.release()
-        xm2.release()
+    with metrics.span("stitch"):
+        segments = [stitcher.despecify_indel_breakpoints(seg)
+                    for seg in segments]
+        aln = stitcher.stitch(
+            segments, sub1.graph, sub2.graph, sub1.tableau, sub2.tableau,
+            xm1, xm2)
+        if merge_cls is PackedPathMerge:
+            xm1.release()
+            xm2.release()
     log_memory_usage(logmod.Debug)
     return aln
 
@@ -114,9 +120,10 @@ def pairwise_align_step(sub1, sub2, max_count, score_function, anchorer,
 def fuse_step(sub1, sub2, alignment, preserve=False):
     """Fuse child graphs along the alignment into the parent graph
     (reference core.hpp:369-389). Returns (graph, tableau)."""
-    logmod.log(logmod.Verbose, "Fusing MSAs along the alignment.")
-    fused = sub1.graph.copy() if preserve else sub1.graph
-    fuse(fused, sub2.graph, sub1.tableau, sub2.tableau, alignment)
+    with metrics.span("fuse"):
+        logmod.log(logmod.Verbose, "Fusing MSAs along the alignment.")
+        fused = sub1.graph.copy() if preserve else sub1.graph
+        fuse(fused, sub2.graph, sub1.tableau, sub2.tableau, alignment)
     return fused, sub1.tableau
 
 
@@ -125,24 +132,26 @@ def leaf_intrinsic_scale(sub, max_count, score_function, anchorer):
     calibration, reference src/core.cpp:122-175). Returns
     (scale, matches, chain) — matches/chain feed the -c bonding rounds."""
     from .path_merge import ChainMerge
-    reassign_sentinels(sub.graph, sub.tableau, 5, 6)
-    dummy = SentinelTableau(
-        src_id=sub.tableau.src_id, snk_id=sub.tableau.snk_id,
-        src_sentinel=7, snk_sentinel=8)
-    matches = find_matches(sub.graph, sub.graph, sub.tableau, dummy,
-                           max_count, score_function)
-    diagonal = []
-    for ms in matches:
-        for walk in ms.walks1:
-            diagonal.append(MatchSet(
-                walks1=walk[None, :], walks2=walk[None, :],
-                count1=ms.count1, count2=ms.count2,
-                full_length=ms.full_length))
-    xm = ChainMerge(sub.graph, sub.tableau)
-    chain_out = []
-    scale = anchorer.estimate_score_scale(
-        diagonal, sub.graph, sub.graph, sub.tableau, dummy,
-        xm, xm, chain_out=chain_out)
+    with metrics.span("calibration.match"):
+        reassign_sentinels(sub.graph, sub.tableau, 5, 6)
+        dummy = SentinelTableau(
+            src_id=sub.tableau.src_id, snk_id=sub.tableau.snk_id,
+            src_sentinel=7, snk_sentinel=8)
+        matches = find_matches(sub.graph, sub.graph, sub.tableau, dummy,
+                               max_count, score_function)
+    with metrics.span("calibration.chain"):
+        diagonal = []
+        for ms in matches:
+            for walk in ms.walks1:
+                diagonal.append(MatchSet(
+                    walks1=walk[None, :], walks2=walk[None, :],
+                    count1=ms.count1, count2=ms.count2,
+                    full_length=ms.full_length))
+        xm = ChainMerge(sub.graph, sub.tableau)
+        chain_out = []
+        scale = anchorer.estimate_score_scale(
+            diagonal, sub.graph, sub.graph, sub.tableau, dummy,
+            xm, xm, chain_out=chain_out)
     return scale, matches, chain_out
 
 
@@ -173,34 +182,41 @@ def leaf_bond_alignments(sub, scale, matches, chain, anchorer, bonder,
             logmod.Verbose,
             f"Beginning round {rnd + 1} of tandem duplication "
             f"detection for sequence {sub.name}.")
-        secondary_chain = anchorer.anchor_chain(
-            matches, sub.graph, sub.graph, sub.tableau,
-            sub.tableau, path_merge, path_merge,
-            masked_matches=mask, override_scale=scale)
-        bonds = bonder.identify_bonds(
-            sub.graph, sub.graph, sub.tableau, sub.tableau,
-            path_merge, path_merge, chain, secondary_chain)
-        bonds = bonder.deduplicate_self_bonds(bonds)
+        with metrics.span("bond.chain"):
+            secondary_chain = anchorer.anchor_chain(
+                matches, sub.graph, sub.graph, sub.tableau,
+                sub.tableau, path_merge, path_merge,
+                masked_matches=mask, override_scale=scale)
+            bonds = bonder.identify_bonds(
+                sub.graph, sub.graph, sub.tableau, sub.tableau,
+                path_merge, path_merge, chain, secondary_chain)
+            bonds = bonder.deduplicate_self_bonds(bonds)
         logmod.log(logmod.Verbose,
                    f"Found {len(bonds)} tandem duplications in this round.")
         if not bonds:
             break
-        if step_index is None:
-            step_index = StepIndex(sub.graph)
-        for bond in bonds:
-            bond_chain = Core.bonds_to_chain(sub.graph, bond)
-            aln = stitcher.internal_stitch(bond_chain, sub.graph, path_merge)
-            if collect_raw:
-                raw_alns.append(aln)
-            aln = aln.copy()
-            for r in range(len(aln)):
-                if aln[r, 0] != -1:
-                    aln[r, 0] = step_index.path_steps(int(aln[r, 0]))[0][1]
-                if aln[r, 1] != -1:
-                    aln[r, 1] = step_index.path_steps(int(aln[r, 1]))[0][1]
-            bond_alns.append((sub.graph.path_name(0), aln))
+        with metrics.span("bond.stitch"):
+            if step_index is None:
+                step_index = StepIndex(sub.graph)
+            for bond in bonds:
+                bond_chain = Core.bonds_to_chain(sub.graph, bond)
+                with metrics.span("stitch"):
+                    aln = stitcher.internal_stitch(bond_chain, sub.graph,
+                                                   path_merge)
+                if collect_raw:
+                    raw_alns.append(aln)
+                aln = aln.copy()
+                for r in range(len(aln)):
+                    if aln[r, 0] != -1:
+                        aln[r, 0] = step_index.path_steps(
+                            int(aln[r, 0]))[0][1]
+                    if aln[r, 1] != -1:
+                        aln[r, 1] = step_index.path_steps(
+                            int(aln[r, 1]))[0][1]
+                bond_alns.append((sub.graph.path_name(0), aln))
         if rnd != max_rounds:
-            Core.update_mask(matches, secondary_chain, mask, True)
+            with metrics.span("bond.chain"):
+                Core.update_mask(matches, secondary_chain, mask, True)
             logmod.log(logmod.Debug,
                        f"Updated mask consists of {len(mask)} matches")
     return bond_alns, raw_alns
@@ -265,30 +281,31 @@ class Core:
     def calibrate_anchor_scores_and_identify_bonds(self):
         """(reference src/core.cpp:96-299). Returns bond alignments (list of
         (path name, alignment in path-offset coordinates))."""
-        from .path_merge import ChainMerge
-        logmod.log(logmod.Basic,
-                   "Calibrating scale of anchoring parameters."
-                   if not self.cyclize_tandem_duplications else
-                   "Calibrating scale of anchoring parameters and "
-                   "identifying tandem duplications.")
-        log_memory_usage(logmod.Debug)
-        scales = []
-        bond_alns = []
-        match_query_memo = []
-        leaves = list(self.main_execution.leaf_subproblems())
-        for i, sub in enumerate(leaves):
-            logmod.log(logmod.Verbose,
-                       f"Estimating scale for sequence {i + 1}.")
-            scale, matches, chain_out = leaf_intrinsic_scale(
-                sub, self.max_count, self.score_function, self.anchorer)
-            scales.append(scale)
-            logmod.log(logmod.Debug,
-                       f"Computed intrinsic scale of {scale} for sequence {sub.name}")
-            if self.cyclize_tandem_duplications:
-                match_query_memo.append((matches, chain_out))
+        with metrics.span("calibration"):
+            logmod.log(logmod.Basic,
+                       "Calibrating scale of anchoring parameters."
+                       if not self.cyclize_tandem_duplications else
+                       "Calibrating scale of anchoring parameters and "
+                       "identifying tandem duplications.")
             log_memory_usage(logmod.Debug)
-        if not self.skip_calibration and scales:
-            self.score_function.score_scale = float(np.mean(scales))
+            scales = []
+            bond_alns = []
+            match_query_memo = []
+            leaves = list(self.main_execution.leaf_subproblems())
+            for i, sub in enumerate(leaves):
+                logmod.log(logmod.Verbose,
+                           f"Estimating scale for sequence {i + 1}.")
+                scale, matches, chain_out = leaf_intrinsic_scale(
+                    sub, self.max_count, self.score_function, self.anchorer)
+                scales.append(scale)
+                logmod.log(logmod.Debug,
+                           f"Computed intrinsic scale of {scale} for "
+                           f"sequence {sub.name}")
+                if self.cyclize_tandem_duplications:
+                    match_query_memo.append((matches, chain_out))
+                log_memory_usage(logmod.Debug)
+            if not self.skip_calibration and scales:
+                self.score_function.score_scale = float(np.mean(scales))
 
         if (self.cyclize_tandem_duplications
                 and self._restarted_bond_alignments is None):
@@ -413,27 +430,29 @@ class Core:
         (polish_cyclized_graph, src/core.cpp:650-767)."""
         if not bond_alignments:
             return
-        logmod.log(logmod.Basic, "Cyclizing the final graph.")
-        root = self.root_subproblem()
-        alns = []
-        for (path_name, aln) in bond_alignments:
-            pid = root.graph.path_id(path_name)
-            path = root.graph.path(pid)
-            aln = aln.copy()
-            m1 = aln[:, 0] != -1
-            m2 = aln[:, 1] != -1
-            aln[m1, 0] = path[aln[m1, 0]]
-            aln[m2, 1] = path[aln[m2, 1]]
-            alns.append(aln)
-        fused, tab, _ = internal_fuse(root.graph, alns, root.tableau)
-        fused = simplify_bubbles(fused, tab)
-        logmod.log(logmod.Debug,
-                   f"Cyclized graph reduces from {root.graph.node_size} to "
-                   f"{fused.node_size} nodes after merging.")
-        root.graph = fused
-        root.tableau = tab
-        root.alignment = np.empty((0, 2), dtype=np.int64)
-        self.polish_cyclized_graph(root)
+        with metrics.span("cyclize"):
+            logmod.log(logmod.Basic, "Cyclizing the final graph.")
+            root = self.root_subproblem()
+            alns = []
+            for (path_name, aln) in bond_alignments:
+                pid = root.graph.path_id(path_name)
+                path = root.graph.path(pid)
+                aln = aln.copy()
+                m1 = aln[:, 0] != -1
+                m2 = aln[:, 1] != -1
+                aln[m1, 0] = path[aln[m1, 0]]
+                aln[m2, 1] = path[aln[m2, 1]]
+                alns.append(aln)
+            fused, tab, _ = internal_fuse(root.graph, alns, root.tableau)
+            fused = simplify_bubbles(fused, tab)
+            logmod.log(logmod.Debug,
+                       f"Cyclized graph reduces from {root.graph.node_size} "
+                       f"to {fused.node_size} nodes after merging.")
+            root.graph = fused
+            root.tableau = tab
+            root.alignment = np.empty((0, 2), dtype=np.int64)
+        with metrics.span("polish"):
+            self.polish_cyclized_graph(root)
 
     def polish_cyclized_graph(self, subproblem: Subproblem) -> None:
         """Realign regions of the cyclized graph flagged as inconsistent
@@ -654,31 +673,39 @@ class Core:
     def do_execution(self, execution: Execution, is_main_execution: bool,
                      match_finder=None) -> None:
         while not execution.finished():
-            parent, sub1, sub2 = execution.next()
-            if parent.complete:
-                logmod.log(logmod.Verbose,
-                           "Problem already finished from restarted run.")
-                continue
-            parent.alignment = pairwise_align_step(
-                sub1, sub2, self.max_count, self.score_function,
-                self.anchorer, self.partitioner, self.stitcher,
-                match_finder=match_finder,
-                is_main_execution=is_main_execution,
-                memory_restraint_size=self.memory_restraint_size)
-            if self.subalignments_filepath and is_main_execution:
-                self.emit_subalignment(parent, sub1, sub2)
-            parent.graph, parent.tableau = fuse_step(
-                sub1, sub2, parent.alignment,
-                preserve=self.preserve_subproblems)
-            parent.complete = True
-            if not self.preserve_subproblems:
-                sub1.graph = None
-                sub2.graph = None
-            if self.subproblems_prefix and is_main_execution:
-                self.emit_subproblem(parent)
-            from .native import malloc_trim
-            malloc_trim()
-            log_memory_usage(logmod.Verbose)
+            with metrics.span("subproblem"):
+                self._execute_next(execution, is_main_execution,
+                                   match_finder)
+
+    def _execute_next(self, execution: Execution, is_main_execution: bool,
+                      match_finder) -> None:
+        """The next subproblem of `execution`: align its children, fuse
+        them into it."""
+        parent, sub1, sub2 = execution.next()
+        if parent.complete:
+            logmod.log(logmod.Verbose,
+                       "Problem already finished from restarted run.")
+            return
+        parent.alignment = pairwise_align_step(
+            sub1, sub2, self.max_count, self.score_function,
+            self.anchorer, self.partitioner, self.stitcher,
+            match_finder=match_finder,
+            is_main_execution=is_main_execution,
+            memory_restraint_size=self.memory_restraint_size)
+        if self.subalignments_filepath and is_main_execution:
+            self.emit_subalignment(parent, sub1, sub2)
+        parent.graph, parent.tableau = fuse_step(
+            sub1, sub2, parent.alignment,
+            preserve=self.preserve_subproblems)
+        parent.complete = True
+        if not self.preserve_subproblems:
+            sub1.graph = None
+            sub2.graph = None
+        if self.subproblems_prefix and is_main_execution:
+            self.emit_subproblem(parent)
+        from .native import malloc_trim
+        malloc_trim()
+        log_memory_usage(logmod.Verbose)
 
     def align(self, matches, sub1: Subproblem, sub2: Subproblem, xm1, xm2,
               is_main_execution: bool) -> np.ndarray:

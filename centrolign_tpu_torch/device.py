@@ -17,7 +17,14 @@ import os
 
 import torch
 
+from . import metrics
+
 ENV = "CENTROLIGN_TORCH_DEVICE"
+
+# the modes resolved in this process (the first resolution of each is the
+# process span device.init) and the cards whose CUDA context is made
+_resolved: set = set()
+_contexts: set = set()
 
 
 def resolve_device(mode: str | None = None) -> torch.device | None:
@@ -25,6 +32,28 @@ def resolve_device(mode: str | None = None) -> torch.device | None:
     None for ``none``. Raises if ``cuda`` is asked for and there is no card."""
     if mode is None:
         mode = os.environ.get(ENV, "cuda")
+    if mode in _resolved:
+        return _device(mode)
+    with metrics.process_span("device.init"):
+        device = _device(mode)
+    _resolved.add(mode)
+    return device
+
+
+def make_context(device: torch.device) -> None:
+    """Make a card's CUDA context, once a process (the process span
+    device.context); the device tier calls it before its first copy to the
+    card. Not at resolve_device: made before a process's first host work,
+    the context's host memory (about 135 MiB on an H100's host) adds to
+    that work's peak resident set instead of filling what it freed."""
+    if device.type != "cuda" or device.index in _contexts:
+        return
+    with metrics.process_span("device.context"):
+        torch.cuda.synchronize(device)
+    _contexts.add(device.index)
+
+
+def _device(mode: str) -> torch.device | None:
     if mode == "none":
         return None
     if mode == "cpu":

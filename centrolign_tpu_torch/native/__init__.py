@@ -29,6 +29,8 @@ import subprocess
 
 import numpy as np
 
+from .. import metrics
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _SOURCES = ["chain.cpp", "chain_general.cpp", "chain_affine_cdq.cpp", "esa.cpp", "popoa.cpp", "extract.cpp", "wfa.cpp", "chain_parity.cpp", "superbubbles.cpp", "three_ecc.cpp", "cactus_snarls.cpp", "fill_in.cpp", "chain_levels.cpp"]
@@ -150,9 +152,14 @@ def open_library(path: str, sanitize: bool) -> ctypes.CDLL:
 
 
 def get_lib() -> ctypes.CDLL:
-    global _lib
     if _lib is not None:
         return _lib
+    with metrics.process_span("load.native"):
+        return _load_lib()
+
+
+def _load_lib() -> ctypes.CDLL:
+    global _lib
     sanitize = sanitizing()
     lib = open_library(_built_library(sanitize), sanitize)
     lib.chain_dp_seq.restype = ctypes.c_int64

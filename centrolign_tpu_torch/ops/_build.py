@@ -31,7 +31,7 @@ import os
 import shutil
 import subprocess
 
-from .. import native
+from .. import metrics, native
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -144,7 +144,9 @@ def load_library(name: str, jitter: bool = False) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu (its jitter build with
     `jitter`), built first if needed."""
     key = f"{name}_jit" if jitter else name
-    if key not in _libs:
+    if key in _libs:
+        return _libs[key]
+    with metrics.process_span("load.cuda"):
         if jitter:
             build_jitter_libraries([name])
             _libs[key] = native.open_library(

@@ -54,6 +54,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import metrics
+from ..device import make_context
 from ..native import cdq_row_levels
 
 _NEGF = np.float32(np.finfo(np.float32).min)
@@ -288,9 +290,11 @@ def chain_cdq_device_batch(problems, device: torch.device):
         return res
     n_pad = max(len(problems[b][0]) for b in live)
     orders, arrays = pack([problems[b] for b in live], n_pad)
+    make_context(device)
     outs = cdq_scan(*(torch.from_numpy(a).to(device) for a in arrays),
                     anchors=sum(len(problems[b][0]) for b in live))
-    outs = [o.cpu().numpy() for o in outs]
+    with metrics.span("device.wait"):
+        outs = [o.cpu().numpy() for o in outs]
     for k, b in enumerate(live):
         n = len(problems[b][0])
         res[b] = (*_unsort(orders[k], n, *(o[k] for o in outs)), qshifts[b])

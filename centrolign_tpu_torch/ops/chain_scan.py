@@ -53,6 +53,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import metrics
+from ..device import make_context
 from ..chain_ties import _heap_rank, _subtree_interval
 from ..native import chain_event_levels
 from .chain_cdq import runs
@@ -232,11 +234,13 @@ def sparse_chain_scan(starts1_pos, ends1_pos, idx2_start, idx2_end,
         return [], 0.0
     order, qhi, ev, dp0, levels = build_events(
         starts1_pos, ends1_pos, idx2_start, idx2_end, weights, reach_src)
+    make_context(device)
     dp, winners = event_scan(
         torch.from_numpy(ev).to(device), torch.from_numpy(dp0).to(device),
         tuple(torch.from_numpy(a).to(device) for a in levels), anchors=n)
-    dp = dp.cpu().numpy()
-    winners = winners.cpu().numpy()
+    with metrics.span("device.wait"):
+        dp = dp.cpu().numpy()
+        winners = winners.cpu().numpy()
     ev_kind, ev_slot = ev[:, 0], ev[:, 1]
     ends_pos = np.asarray(ends1_pos, dtype=np.int64)[order]
 

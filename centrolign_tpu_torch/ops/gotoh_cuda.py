@@ -40,7 +40,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from .. import metrics
+from ..device import make_context, resolve_device
 from . import _build
 from .gotoh import (COL_BP_HI, COL_BP_LO, COL_GAPS, COL_LANE_IS_I, COL_NPW,
                     COL_SEQ_OFF, COL_SWAP, MAX_PW, N_COLS, gotoh_fill_plain,
@@ -377,6 +378,7 @@ def _split_launches(jobs):
 
 def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
+        make_context(device)
         # pinned + non_blocking: the copy queues on the stream instead of
         # waiting for the fills already in flight
         return x.pin_memory().to(device, non_blocking=True)
@@ -402,7 +404,9 @@ def gotoh_fetch(handle):
     (alignment (L,2) int64, score int)."""
     results = []
     for rows, n in handle:
-        packed = rows.cpu().numpy().astype(np.int64)
+        with metrics.span("device.wait"):
+            rows = rows.cpu()
+        packed = rows.numpy().astype(np.int64)
         for k in range(n):
             row = packed[k]
             count, sc = int(row[0, 0]), int(row[0, 1])

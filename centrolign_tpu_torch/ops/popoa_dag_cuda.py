@@ -27,6 +27,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import metrics
 from . import _build
 from .gotoh_cuda import (_check_cuda, _raise_on, _to_device, allocate,
                          check_buffers)
@@ -464,5 +465,7 @@ def popoa_dag_align_jobs(jobs, device: torch.device) -> list:
         bp, sinkm = popoa_dag_fill(table, data, bp_size, sinkm_size,
                                    scratch, smem, lanes)
         rows = popoa_dag_traceback(bp, sinkm, table, data, cap)
-        out += list(rows.cpu().numpy())
+        with metrics.span("device.wait"):
+            rows = rows.cpu()
+        out += list(rows.numpy())
     return out

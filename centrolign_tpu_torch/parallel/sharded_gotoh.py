@@ -36,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from .. import metrics
+from ..device import make_context, resolve_device
 from ..ops import sharded_gotoh_cuda
 from ..ops.align_params import MININF
 from ..ops.gotoh_cuda import allocate, check_buffers
@@ -174,6 +175,7 @@ def fill_shards(a, b, V1, V2, params, mesh, num_diags: int,
     shards = {}
     for k, ins in shard_inputs(a, b, V1, V2, mesh).items():
         dev = mesh[k[0]][k[1]]
+        make_context(dev)
         shards[k] = {**{name: torch.from_numpy(x).to(dev)
                         for name, x in ins.items()},
                      **allocate(specs[k], dev)}
@@ -218,13 +220,15 @@ def gather(rows):
     """(scores (B,) int32, bp (num_diags, B, W) uint16 or None) on the
     host from fill_shards' rows: each problem's opt cell lies on exactly
     one shard, MININF on the others."""
-    scores = np.concatenate([
-        torch.stack([sh["score"].cpu() for sh in shards]).amax(0).numpy()
-        for shards in rows])
-    if rows[0][0]["bp"] is None:
+    with_bp = rows[0][0]["bp"] is not None
+    with metrics.span("device.wait"):
+        scores = [[sh["score"].cpu() for sh in shards] for shards in rows]
+        bps = [[sh["bp"].cpu() for sh in shards]
+               for shards in rows] if with_bp else None
+    scores = np.concatenate([torch.stack(s).amax(0).numpy() for s in scores])
+    if not with_bp:
         return scores, None
-    bp = torch.cat([torch.cat([sh["bp"].cpu() for sh in shards], 2)
-                    for shards in rows], 1)
+    bp = torch.cat([torch.cat(s, 2) for s in bps], 1)
     return scores, bp.view(torch.uint16).numpy()
 
 

@@ -200,7 +200,6 @@ class Stitcher:
         # parameters from its own table row, so all share one queue
         self._queue: list = []      # [_Pending, ...]
         self._handles: list = []    # [( [_Pending, ...], device handle )]
-        self._dispatch_t = 0.0
 
     def _register_pending(self, pending: _Pending) -> None:
         """Queue a chain device job; launch the queue once it holds
@@ -222,17 +221,16 @@ class Stitcher:
         lst, self._queue = self._queue, []
         if not lst:
             return
-        t0 = metrics.timer()
         handle = gotoh_dispatch([p.job for p in lst], self.device)
-        self._dispatch_t += metrics.timer() - t0
         self._handles.append((lst, handle))
 
     def _run_host_pending(self, stitched: list) -> None:
         """Execute the deferred host-native gap alignments (kind="host"),
         in output order, overlapping the in-flight device batches."""
-        for k, x in enumerate(stitched):
-            if isinstance(x, _Pending) and x.kind == "host":
-                stitched[k] = x.finish(x.job())
+        with metrics.span("stitch.align"):
+            for k, x in enumerate(stitched):
+                if isinstance(x, _Pending) and x.kind == "host":
+                    stitched[k] = x.finish(x.job())
 
     def _flush_pending(self, stitched: list) -> None:
         """Complete all queued device gap alignments: launch what is still
@@ -244,7 +242,7 @@ class Stitcher:
         dag_slots = [k for k, x in enumerate(stitched)
                      if isinstance(x, _Pending) and x.kind == "dag"]
         if self._handles or self._queue:
-            t0 = metrics.timer()
+            first = len(metrics.spans)
             self._dispatch_chain()
             by_id = {}
             for lst, handle in self._handles:
@@ -257,8 +255,7 @@ class Stitcher:
                 cells += (len(s1) + 1) * (len(s2) + 1)
                 stitched[k] = stitched[k].finish(aln)
             metrics.record(
-                "pod", cells,
-                self._dispatch_t + metrics.timer() - t0,
+                "pod", cells, metrics.seconds_of("device.wait", first),
                 f"batches={len(self._handles)} overlap")
             self._handles = []
         if dag_slots:
