@@ -30,7 +30,10 @@ and free-gap sparse chaining on chain graphs (CENTROLIGN_TPU_DEVICE_CHAIN=1,
 ops/chain_scan.py), run on the anchorer's `device` in place of the JAX
 package's device_ready() gate: the CUDA kernels on a card, their plain
 versions on the CPU, and the native engines when the device is None. A
-device failure raises; nothing falls back to the native engine.
+device failure raises; nothing falls back to the native engine. Unmasked
+SparseAffine chaining of inputs that are not chain x chain (the MSA's
+graph x graph merges) takes the graph x graph CDQ engine, which the JAX
+package does not have; its chains are the tree engine's (_chain_affine).
 """
 
 from __future__ import annotations
@@ -39,11 +42,16 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from . import metrics
 from .score_function import ScoreFunction
 from .path_merge import PathMerge, PostSwitchDistances
 
 _I64 = np.int64
 _LOWEST = -np.inf
+# what a CDQ engine returns in place of a chain: the input is not chain x
+# chain (the one-family engine), or a tied traceback step went unresolved
+_NOT_CHAINS = "not chain x chain"
+_UNRESOLVED = "unresolved tie"
 
 
 @dataclass
@@ -827,36 +835,10 @@ class Anchorer:
             fvals[:, 0] = scores
             grows = np.zeros((len(rows), 2), dtype=_I64)
         else:
-            import os
-            res = None
-            # Default-on since round 4: the offline CDQ value engine
-            # computes bit-identical dp values (validated against the tree
-            # engine: 0/145331 mismatches on the benchmark pair input) and
-            # traceback ties are resolved exactly by the host tree-walk
-            # replica (chain_ties.py) — byte-identical CIGARs/chains at
-            # ~1/10 the sweep cost. Tree engine remains for masked
-            # (cyclization) chains and non-chain graphs.
-            if (not local_masked
-                    and os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ", "1") == "1"):
-                res = self._chain_affine_cdq(
-                    matches, graph1, graph2, xmerge1, xmerge2,
-                    sources1, sources2, sinks1, sinks2, scale,
-                    num_sets, num_anchors, max_match_size, weights)
-            if res is not None and os.environ.get(
-                    "CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE"):
-                res = self._validate_cdq(
-                    res, matches, graph1, graph2, xmerge1, xmerge2,
-                    sources1, sources2, sinks1, sinks2, scale,
-                    num_sets, num_anchors, max_match_size, weights,
-                    local_masked)
-            if res is not None:
-                arows, fvals = res
-            else:
-                arows, fvals = chain_affine_parity(
-                    graph1, graph2, matches, num_sets, weights, xmerge1,
-                    xmerge2, self.gap_open, self.gap_extend, scale,
-                    sources1, sources2, sinks1, sinks2,
-                    num_anchors, max_match_size, local_masked)
+            arows, fvals = self._chain_affine(
+                matches, graph1, graph2, xmerge1, xmerge2, sources1,
+                sources2, sinks1, sinks2, scale, local_masked, num_sets,
+                num_anchors, max_match_size, weights)
             rows = arows[:, :3]
             grows = arows[:, 3:5]
 
@@ -885,6 +867,59 @@ class Anchorer:
                 a.gap_after = -a.gap_after
         return chain
 
+    def _chain_affine(self, matches, graph1, graph2, xmerge1, xmerge2,
+                      sources1, sources2, sinks1, sinks2, scale, masked,
+                      num_sets, num_anchors, max_match_size, weights):
+        """SparseAffine chaining in chain_affine_parity's output format.
+
+        Unmasked inputs take an offline CDQ value engine, bit-identical to
+        the tree sweep (validated against it: 0/145331 dp mismatches on the
+        benchmark pair input), with traceback ties resolved exactly by the
+        host replica of the trees' walk (chain_ties.py): chain x chain
+        inputs the one-family engine, every other input the graph x graph
+        engine over all (path1, path2) families. The tree engine
+        (chain_affine_parity) takes masked (cyclization) chains, inputs
+        outside the engines' reach, a chaining whose tied step the replica
+        cannot resolve, and everything with CENTROLIGN_TPU_CHAIN_CDQ=0.
+        Records the anchors under metrics tags chain.cdq, chain.tree and
+        chain.tree_fallback (masked chains are not counted)."""
+        import os
+        from .native import chain_affine_parity
+
+        t0 = metrics.timer()
+        res, tag = None, "chain.tree"
+        if not masked and os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ",
+                                         "1") == "1":
+            res = self._chain_affine_cdq(
+                matches, graph1, graph2, xmerge1, xmerge2,
+                sources1, sources2, sinks1, sinks2, scale,
+                num_sets, num_anchors, max_match_size, weights)
+            if res is _NOT_CHAINS:
+                res = self._chain_affine_graph_cdq(
+                    matches, graph1, graph2, xmerge1, xmerge2,
+                    sources1, sources2, sinks1, sinks2, scale,
+                    num_sets, num_anchors, max_match_size, weights)
+            if res is _UNRESOLVED:
+                res, tag = None, "chain.tree_fallback"
+            elif res is not None:
+                tag = "chain.cdq"
+                if os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE"):
+                    res = self._validate_cdq(
+                        res, matches, graph1, graph2, xmerge1, xmerge2,
+                        sources1, sources2, sinks1, sinks2, scale,
+                        num_sets, num_anchors, max_match_size, weights)
+        if res is None:
+            res = chain_affine_parity(
+                graph1, graph2, matches, num_sets, weights, xmerge1,
+                xmerge2, self.gap_open, self.gap_extend, scale,
+                sources1, sources2, sinks1, sinks2,
+                num_anchors, max_match_size, masked)
+        if not masked:
+            cells = sum(len(m.walks1) * len(m.walks2)
+                        for m in matches[:num_sets])
+            metrics.record(tag, cells, metrics.timer() - t0)
+        return res
+
     # ------------------------------------------------------------------
     # CDQ validation harness (CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE=1): run the
     # tree engine alongside, diff per-anchor dp/bp, report, return the tree
@@ -892,8 +927,7 @@ class Anchorer:
 
     def _validate_cdq(self, res, matches, graph1, graph2, xmerge1, xmerge2,
                       sources1, sources2, sinks1, sinks2, scale,
-                      num_sets, num_anchors, max_match_size, weights,
-                      local_masked):
+                      num_sets, num_anchors, max_match_size, weights):
         import os
         import sys
         import tempfile
@@ -913,7 +947,7 @@ class Anchorer:
                 graph1, graph2, matches, num_sets, weights, xmerge1,
                 xmerge2, self.gap_open, self.gap_extend, scale,
                 sources1, sources2, sinks1, sinks2,
-                num_anchors, max_match_size, local_masked)
+                num_anchors, max_match_size)
         finally:
             if prev_dump is None:
                 del os.environ["CHAIN_DP_DUMP"]
@@ -995,8 +1029,8 @@ class Anchorer:
         traceback path are resolved in-process by chain_ties.AffineTieResolver
         (a rank-arithmetic replica of the tree visit order), and only an
         unresolved walk (resolve() -> None) falls back to the tree engine.
-        Returns (arows, fvals) in chain_affine_parity's output format, or
-        None when not applicable."""
+        Returns (arows, fvals) in chain_affine_parity's output format,
+        _NOT_CHAINS when the input is not chain x chain, or _UNRESOLVED."""
         import os
 
         # any _cdq_debug left over from a prior call (e.g. one that fell
@@ -1009,42 +1043,25 @@ class Anchorer:
                     and int((g.in_degrees() == 0).sum()) == 1)
 
         if xmerge1.num_chains > 2 or xmerge2.num_chains > 2:
-            return None
+            return _NOT_CHAINS
         if not (is_chain(graph1) and is_chain(graph2)):
-            return None
+            return _NOT_CHAINS
         idx1 = np.asarray(xmerge1.index_on[0], dtype=_I64)
         idx2 = np.asarray(xmerge2.index_on[0], dtype=_I64)
 
-        # flatten anchors in MatchBank id order: (set, walk1, walk2)
-        parts = []
-        for s in range(num_sets):
-            m = matches[s]
-            a1 = np.asarray(m.walks1, dtype=_I64)
-            a2 = np.asarray(m.walks2, dtype=_I64)
-            n1, n2 = len(a1), len(a2)
-            if n1 == 0 or n2 == 0:
-                continue
-            parts.append((
-                np.full(n1 * n2, s, dtype=_I64),
-                np.repeat(np.arange(n1, dtype=_I64), n2),
-                np.tile(np.arange(n2, dtype=_I64), n1),
-                np.repeat(a1[:, 0], n2), np.repeat(a1[:, -1], n2),
-                np.tile(a2[:, 0], n1), np.tile(a2[:, -1], n1)))
-        if not parts:
+        sid, i1s, i2s, as1, ae1, as2, ae2 = self._flat_anchors(matches,
+                                                               num_sets)
+        if len(sid) == 0:
             return (np.empty((0, 5), dtype=_I64), np.empty((0, 3)))
-        sid, i1s, i2s, as1, ae1, as2, ae2 = (
-            np.concatenate([p[k] for p in parts]) for k in range(7))
-        n = len(sid)
-
         ps1, pe1, ps2, pe2 = idx1[as1], idx1[ae1], idx2[as2], idx2[ae2]
         if (ps1 < 0).any() or (pe1 < 0).any() or (ps2 < 0).any() \
                 or (pe2 < 0).any():
-            return None
+            return _NOT_CHAINS
         for nodes, idx in ((sources1, idx1), (sources2, idx2),
                            (sinks1, idx1), (sinks2, idx2)):
             if nodes is not None and len(nodes) and \
                     (idx[np.asarray(nodes, dtype=_I64)] < 0).any():
-                return None
+                return _NOT_CHAINS
 
         # reference integer-width dispatch (anchorer.hpp:1271-1280) decides
         # the unreachable-gap sentinel value
@@ -1171,7 +1188,7 @@ class Anchorer:
                         import sys
                         print("[cdq] unresolved tie -> tree engine fallback",
                               file=sys.stderr)
-                    return None
+                    return _UNRESOLVED
                 rev.append(here)
                 here = int(here2)
                 continue
@@ -1211,6 +1228,94 @@ class Anchorer:
                 arows[t, 4] = g
                 fvals[t, 2] = score_gap(g)[0]
         return arows, fvals
+
+    def _chain_affine_graph_cdq(self, matches, graph1, graph2, xmerge1,
+                                xmerge2, sources1, sources2, sinks1, sinks2,
+                                scale, num_sets, num_anchors, max_match_size,
+                                weights):
+        """Reference-exact SparseAffine chaining of any unmasked input
+        through the graph x graph CDQ pass (native chain_affine_graph_cdq):
+        the tree sweep's timeline over every (path1, path2) family, solved
+        offline, with bit-identical dp values. The traceback follows the
+        backpointers; a step whose winning channel had several achievers is
+        resolved by chain_ties.GraphTieResolver, the replica of that
+        family's trees at the query's time. Returns (arows, fvals) in
+        chain_affine_parity's output format, None when the input is outside
+        the engine's reach, or _UNRESOLVED."""
+        import os
+        from .native import AffineGraphCDQ, reference_topological_order
+
+        self._cdq_debug = None
+        eng = AffineGraphCDQ(graph1, graph2, matches, num_sets, weights,
+                             xmerge1, xmerge2, self.gap_open,
+                             self.gap_extend, scale, sources1, sources2,
+                             sinks1, sinks2, num_anchors, max_match_size)
+        got = eng.values()
+        if got is None:
+            return None
+        (dp, bp, tie, struct, stored, qtime, qfam, qshift, qoff,
+         init), opt = got
+        if os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE"):
+            sid, i1s, i2s, s1, e1, s2, e2 = self._flat_anchors(
+                matches, num_sets)
+            self._cdq_debug = (sid, i1s, i2s, s1, e1, s2, e2, dp, bp, tie,
+                               init)
+            self._cdq_struct = struct
+
+        rev = []
+        here = opt
+        resolver = None
+        c2 = xmerge2.num_chains
+        while here != -1:
+            rev.append(here)
+            if not tie[here]:
+                here = int(bp[here])
+                continue
+            if resolver is None:
+                from .chain_ties import GraphTieResolver
+                _, _, _, _, e1, _, e2 = self._flat_anchors(matches, num_sets)
+                order = reference_topological_order(graph1)
+                rank1 = np.empty(graph1.node_size, dtype=_I64)
+                rank1[order] = np.arange(graph1.node_size)
+                resolver = GraphTieResolver(
+                    e1, e2, xmerge1.index_on, xmerge2.index_on, rank1, dp,
+                    self.gap_extend, scale)
+            p1, p2 = divmod(int(qfam[here]), c2)
+            here = resolver.resolve(here, int(struct[here]), stored[here],
+                                    qtime[here], p1, p2, qshift[here],
+                                    qoff[here])
+            if here is None:
+                return _UNRESOLVED
+        rev.reverse()
+        return eng.annotate(rev)
+
+    @staticmethod
+    def _flat_anchors(matches, num_sets):
+        """(set, walk1 index, walk2 index, start1, end1, start2, end2) of
+        every anchor of the first num_sets match sets, in MatchBank id
+        order: set-major, then walk1, then walk2."""
+        sets = [m for m in matches[:num_sets]
+                if len(m.walks1) and len(m.walks2)]
+        keep = [s for s in range(num_sets)
+                if len(matches[s].walks1) and len(matches[s].walks2)]
+        if not sets:
+            return tuple(np.empty(0, dtype=_I64) for _ in range(7))
+        n1 = np.array([len(m.walks1) for m in sets], dtype=_I64)
+        n2 = np.array([len(m.walks2) for m in sets], dtype=_I64)
+        ends = [np.concatenate([np.asarray(getattr(m, w), dtype=_I64)[:, c]
+                                for m in sets])
+                for w, c in (("walks1", 0), ("walks1", -1),
+                             ("walks2", 0), ("walks2", -1))]
+        cnt = n1 * n2
+        k = np.repeat(np.arange(len(sets)), cnt)
+        within = np.arange(int(cnt.sum()), dtype=_I64) - np.repeat(
+            np.cumsum(cnt) - cnt, cnt)
+        i1s, i2s = np.divmod(within, n2[k])
+        base1 = (np.cumsum(n1) - n1)[k] + i1s
+        base2 = (np.cumsum(n2) - n2)[k] + i2s
+        return (np.asarray(keep, dtype=_I64)[k], i1s, i2s,
+                ends[0][base1], ends[1][base1], ends[2][base2],
+                ends[3][base2])
 
     def _cdq_values(self, ps1, pe1, ps2, pe2, aw, init, go, ge, scale):
         """CDQ value pass: dp/bp/tie/struct/stored/qshift per anchor.

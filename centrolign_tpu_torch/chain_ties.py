@@ -26,8 +26,10 @@ reference):
   so a cross subtree's winner among equal values is simply the entry with
   the LARGEST outer heap index — independent of update order.
 
-Only chain x chain inputs reach this path (the CDQ engine's own
-applicability guard), so there is exactly one (path1, path2) tree family.
+The trees of one (path1, path2) family are _Family: a chain x chain
+input has one (AffineTieResolver), a graph x graph input one per pair of
+paths (GraphTieResolver). An entry takes part in a query when the sweep
+inserted it at or before the query's time.
 
 Copy of centrolign_tpu/chain_ties.py, carrying _subtree_interval and
 _heap_rank (verbatim from centrolign_tpu/ops/chain_scan.py:103-133)
@@ -158,82 +160,64 @@ def _walk_first_candidate(n, qlo, qhi, cand_ranks, on_path_hit,
     return None
 
 
-class AffineTieResolver:
-    """Per-subproblem context for resolving CDQ backpointer ties.
+class _Family:
+    """The static trees of one (path1, path2) family: the ortho tree over
+    (shift, id) and, per shift, the gap-free tree over (offset, id). Each
+    entry is an anchor of the family with its shift, offset and insert
+    time (when the sweep updated it), and its final f32 dp. A query at
+    time t_q sees the entries inserted at or before t_q; the others still
+    hold MININF in the trees and never win."""
 
-    Arrays are the CDQ engine's flat per-anchor inputs/outputs (chain
-    positions of walk endpoints, final f32 dp). Sort orders are built
-    lazily and cached across the (typically few) tied traceback steps.
-    """
-
-    def __init__(self, ps1, pe1, ps2, pe2, dp, gap_extend, scale):
-        self.ps1, self.pe1 = ps1, pe1
-        self.ps2, self.pe2 = ps2, pe2
-        self.dp = dp.astype(np.float32, copy=False)
-        self.shift = pe1 - pe2
-        self.ck = [float(scale) * float(g) for g in gap_extend]
-        self._gf_groups = None     # shift -> sorted member ids
-        self._outer_order = None   # ids sorted by (shift, id)
-        self._outer_shift = None
+    def __init__(self, ids, shift, offset, t_ins, dp, ck):
+        order = np.lexsort((ids, shift))
+        self.ids = ids[order]
+        self.shift = shift[order]
+        self.offset = offset[order]
+        self.t_ins = t_ins[order]
+        self.dp = dp[self.ids]
+        self.ck = ck
+        self._gf = None            # shift -> its gap-free tree's entries
         self._sv = {}              # pw -> stored channel values (f32)
 
     # ---------------- gap-free (struct 0) ----------------
 
-    def _gf_group(self, s):
-        if self._gf_groups is None:
-            order = np.lexsort((np.arange(len(self.shift)), self.shift))
-            shifts_sorted = self.shift[order]
-            # group boundaries per distinct shift
-            starts = np.flatnonzero(
-                np.r_[True, shifts_sorted[1:] != shifts_sorted[:-1]])
-            ends = np.r_[starts[1:], len(order)]
-            self._gf_groups = {
-                int(shifts_sorted[a]): order[a:b]
-                for a, b in zip(starts, ends)}
-        # members sorted by id; gf keys are (e2 offset, id)
-        mem = self._gf_groups.get(int(s))
-        if mem is None:
-            return None, None
-        skey = np.lexsort((mem, self.pe2[mem]))
-        return mem[skey], self.pe2[mem[skey]]
-
-    def _resolve_gf(self, j, vmax):
-        mem, e2s = self._gf_group(self.ps1[j] - self.ps2[j])
-        if mem is None:
+    def resolve_gf(self, t_q, q, o, vmax):
+        if self._gf is None:
+            # each shift's tree is keyed by (offset, id)
+            order = np.lexsort((self.ids, self.offset, self.shift))
+            sh = self.shift[order]
+            starts = np.flatnonzero(np.r_[True, sh[1:] != sh[:-1]])
+            ends = np.r_[starts[1:], len(sh)]
+            self._gf = {int(sh[a]): order[a:b] for a, b in zip(starts, ends)}
+        grp = self._gf.get(int(q))
+        if grp is None:
             return None
-        n = len(mem)
-        qhi = int(np.searchsorted(e2s, self.ps2[j], side="left"))
-        gate = (self.pe1[mem] < self.ps1[j]) & (self.dp[mem] == vmax)
+        n = len(grp)
+        qhi = int(np.searchsorted(self.offset[grp], o, side="left"))
+        gate = (self.t_ins[grp] <= t_q) & (self.dp[grp] == vmax)
         gate[qhi:] = False
         cand_ranks = np.flatnonzero(gate)
         if len(cand_ranks) == 0:
             return None
         cset = set(cand_ranks.tolist())
-        # first-updated = min (e1 position, id): sweep applies updates in
-        # ascending end-node order, within a node in MatchBank id order
-        pe1m, idm = self.pe1[mem], mem
+        # first-updated = min (insert time, id): the sweep applies updates
+        # in its node order, within a node in MatchBank id order
+        t_g, id_g = self.t_ins[grp], self.ids[grp]
 
         def on_path_hit(r):
-            return int(mem[r]) if r in cset else None
+            return int(id_g[r]) if r in cset else None
 
         def subtree_hit(lo, hi):
             inside = cand_ranks[(cand_ranks >= lo) & (cand_ranks < hi)]
             if len(inside) == 0:
                 return None
-            k = np.lexsort((idm[inside], pe1m[inside]))[0]
-            return int(mem[inside[k]])
+            k = np.lexsort((id_g[inside], t_g[inside]))[0]
+            return int(id_g[inside[k]])
 
         return _walk_first_candidate(n, 0, qhi, cand_ranks, on_path_hit,
                                      subtree_hit)
 
     # ---------------- ortho channels (struct 1..6) ----------------
-
-    def _outer(self):
-        if self._outer_order is None:
-            self._outer_order = np.lexsort(
-                (np.arange(len(self.shift)), self.shift))
-            self._outer_shift = self.shift[self._outer_order]
-        return self._outer_order, self._outer_shift
 
     def _stored_vals(self, pw):
         sv = self._sv.get(pw)
@@ -245,20 +229,16 @@ class AffineTieResolver:
             self._sv[pw] = sv
         return sv
 
-    def _resolve_ortho(self, j, pw, vmax):
-        order, shift_sorted = self._outer()
-        n = len(order)
-        qshift = self.ps1[j] - self.ps2[j]
+    def resolve_ortho(self, pw, t_q, q, o, vmax):
+        n = len(self.ids)
         if pw % 2 == 1:   # ascending channels: shift < qshift
             qlo = 0
-            qhi = int(np.searchsorted(shift_sorted, qshift, side="left"))
+            qhi = int(np.searchsorted(self.shift, q, side="left"))
         else:             # descending channels: shift > qshift
-            qlo = int(np.searchsorted(shift_sorted, qshift, side="right"))
+            qlo = int(np.searchsorted(self.shift, q, side="right"))
             qhi = n
-        sv = self._stored_vals(pw)
-        ids = order
-        gate = ((self.pe1[ids] < self.ps1[j])
-                & (self.pe2[ids] < self.ps2[j]) & (sv[ids] == vmax))
+        gate = ((self.t_ins <= t_q) & (self.offset < o)
+                & (self._stored_vals(pw) == vmax))
         gate[:qlo] = False
         gate[qhi:] = False
         cand_ranks = np.flatnonzero(gate)
@@ -266,6 +246,7 @@ class AffineTieResolver:
             return None
         cset = set(cand_ranks.tolist())
         heap_idx = {int(r): _rank_to_heap(n, int(r)) for r in cand_ranks}
+        ids = self.ids
 
         def on_path_hit(r):
             return int(ids[r]) if r in cset else None
@@ -282,7 +263,35 @@ class AffineTieResolver:
         return _walk_first_candidate(n, qlo, qhi, cand_ranks, on_path_hit,
                                      subtree_hit)
 
-    # ---------------- public ----------------
+    def resolve(self, struct, t_q, q, o, vmax):
+        """The tree-order winner of the family's query at time t_q with
+        shift q and exclusive offset bound o whose winning structure was
+        `struct` (0 = gap-free, 1 + pw = piecewise channel) with range max
+        vmax, or None."""
+        vmax = np.float32(vmax)
+        if struct == 0:
+            return self.resolve_gf(t_q, q, o, vmax)
+        if 1 <= struct <= 6:
+            return self.resolve_ortho(int(struct) - 1, t_q, q, o, vmax)
+        return None
+
+
+class AffineTieResolver:
+    """Per-subproblem context for resolving CDQ backpointer ties of a
+    chain x chain input: one family, whose anchor i has shift pe1 - pe2,
+    offset pe2 and insert time pe1, and whose anchor j queries at time
+    ps1 - 1 with shift ps1 - ps2 and offset bound ps2.
+
+    Arrays are the CDQ engine's flat per-anchor inputs/outputs (chain
+    positions of walk endpoints, final f32 dp). Sort orders are built
+    once and cached across the (typically few) tied traceback steps.
+    """
+
+    def __init__(self, ps1, pe1, ps2, pe2, dp, gap_extend, scale):
+        self.ps1, self.ps2 = ps1, ps2
+        ck = [float(scale) * float(g) for g in gap_extend]
+        self._family = _Family(np.arange(len(pe1)), pe1 - pe2, pe2, pe1,
+                               dp.astype(np.float32, copy=False), ck)
 
     def resolve(self, anchor, struct, stored):
         """Exact tree-order predecessor of `anchor` whose winning query
@@ -290,12 +299,46 @@ class AffineTieResolver:
         with range-max value `stored`, or None if the replica cannot
         resolve it (caller falls back to the tree engine)."""
         j = int(anchor)
-        vmax = np.float32(stored)
-        if struct == 0:
-            return self._resolve_gf(j, vmax)
-        if 1 <= struct <= 6:
-            return self._resolve_ortho(j, int(struct) - 1, vmax)
-        return None
+        return self._family.resolve(
+            struct, self.ps1[j] - 1, self.ps1[j] - self.ps2[j],
+            self.ps2[j], stored)
+
+
+class GraphTieResolver:
+    """Per-subproblem context for resolving the ties of the graph x graph
+    CDQ pass (native chain_affine_graph_cdq): one _Family per (path1,
+    path2), built on first use. e1/e2 are the anchors' end nodes in
+    MatchBank id order, index_on1/index_on2 the PathMerges' (C, V) chain
+    indices, rank1 each graph1 node's position in the sweep's order."""
+
+    def __init__(self, e1, e2, index_on1, index_on2, rank1, dp, gap_extend,
+                 scale):
+        self.e1, self.e2 = e1, e2
+        self.index_on1, self.index_on2 = index_on1, index_on2
+        self.rank1 = rank1
+        self.dp = dp.astype(np.float32, copy=False)
+        self.ck = [float(scale) * float(g) for g in gap_extend]
+        self._families = {}
+
+    def _family(self, p1, p2):
+        fam = self._families.get((p1, p2))
+        if fam is None:
+            i1 = np.asarray(self.index_on1[p1], dtype=np.int64)[self.e1]
+            i2 = np.asarray(self.index_on2[p2], dtype=np.int64)[self.e2]
+            ids = np.flatnonzero((i1 >= 0) & (i2 >= 0))
+            fam = _Family(ids, i1[ids] - i2[ids], i2[ids],
+                          self.rank1[self.e1[ids]], self.dp, self.ck)
+            self._families[(p1, p2)] = fam
+        return fam
+
+    def resolve(self, anchor, struct, stored, qtime, p1, p2, qshift, qoff):
+        """The tree-order predecessor of `anchor`, whose winning query was
+        family (p1, p2)'s at sweep position qtime with shift qshift and
+        offset bound qoff, its structure `struct` with range max `stored`;
+        None if the replica cannot resolve it (the caller falls back to
+        the tree engine)."""
+        return self._family(int(p1), int(p2)).resolve(
+            struct, int(qtime), int(qshift), int(qoff), stored)
 
 
 def resolve_affine_tie(anchor, ps1, pe1, ps2, pe2, dp, init, go, ge, scale,

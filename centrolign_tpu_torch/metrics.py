@@ -74,6 +74,7 @@ _open: list = []  # indices into `spans` of the spans open, innermost last
 _anchor = (time.perf_counter_ns(), time.time_ns())
 _generation = 0
 _MAIN = threading.main_thread().ident
+_record_lock = threading.Lock()
 
 
 def reset() -> None:
@@ -143,10 +144,12 @@ def seconds_of(name: str, first: int = 0) -> float:
 
 
 def record(tag: str, cells: int, seconds: float, detail: str = "") -> None:
-    c = counters[tag]
-    c[0] += 1
-    c[1] += cells
-    c[2] += seconds
+    # the anchorer's fill-in pool chains on worker threads
+    with _record_lock:
+        c = counters[tag]
+        c[0] += 1
+        c[1] += cells
+        c[2] += seconds
     if _INSTRUMENT:
         print(f"[stitch-instrument] {tag} cells={cells} "
               f"t={seconds * 1e9:.0f}ns {detail}", file=sys.stderr)

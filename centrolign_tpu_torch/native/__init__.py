@@ -34,6 +34,7 @@ from .. import metrics
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _SOURCES = ["chain.cpp", "chain_general.cpp", "chain_affine_cdq.cpp", "esa.cpp", "popoa.cpp", "extract.cpp", "wfa.cpp", "chain_parity.cpp", "superbubbles.cpp", "three_ecc.cpp", "cactus_snarls.cpp", "fill_in.cpp", "chain_levels.cpp"]
+_HEADERS = ["chain_cdq_core.h"]
 _FLAGS = ["-O3", "-std=c++17", "-fPIC"]
 SANITIZE_ENV = "CENTROLIGN_TPU_NATIVE_SANITIZE"
 _SAN_FLAGS = ["-O1", "-g", "-fsanitize=address,undefined",
@@ -57,7 +58,7 @@ def malloc_trim() -> None:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for s in _SOURCES:
+    for s in _SOURCES + _HEADERS:
         with open(os.path.join(_DIR, s), "rb") as f:
             h.update(f.read())
     return h.hexdigest()
@@ -288,8 +289,7 @@ def _load_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
-    lib.chain_affine_parity.restype = ctypes.c_int64
-    lib.chain_affine_parity.argtypes = (
+    affine_inputs = (
         [ctypes.c_int64] + [I64P] * 4 +
         [ctypes.c_int64] + [I64P] * 4 +
         [ctypes.c_int64, ctypes.c_int64] + [I64P] * 6 + [DP] + [I64P] * 4 +
@@ -297,9 +297,17 @@ def _load_lib() -> ctypes.CDLL:
         [ctypes.c_int64] + [I64P] * 5 +
         [DP, DP, ctypes.c_double,
          ctypes.c_int64, I64P, ctypes.c_int64, I64P,
-         ctypes.c_int64, I64P, ctypes.c_int64, I64P,
-         ctypes.c_int64, I64P, ctypes.c_int32, ctypes.c_int,
-         ctypes.c_int64, I64P, DP])
+         ctypes.c_int64, I64P, ctypes.c_int64, I64P])
+    lib.chain_affine_parity.restype = ctypes.c_int64
+    lib.chain_affine_parity.argtypes = affine_inputs + [
+        ctypes.c_int64, I64P, ctypes.c_int32, ctypes.c_int,
+        ctypes.c_int64, I64P, DP]
+    lib.chain_affine_graph_cdq.restype = ctypes.c_int64
+    lib.chain_affine_graph_cdq.argtypes = affine_inputs + [
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 11
+    lib.chain_affine_graph_annotate.restype = ctypes.c_int64
+    lib.chain_affine_graph_annotate.argtypes = affine_inputs + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, I64P, I64P, DP]
     _wfa_common = [
         ctypes.c_int64, U8P, I64P, I64P, I64P, I64P,
         ctypes.c_int64, U8P, I64P, I64P, I64P, I64P,
@@ -752,6 +760,64 @@ def chain_sparse_parity(graph1, matches, num_sets, weights, xm1, xm2,
     return out_rows[:nout, :3].copy(), out_f[:nout, 0].copy()
 
 
+class _AffineInputs:
+    """The affine engines' shared native inputs (chain_parity.cpp's
+    AFFINE_INPUTS, up to the sinks): `args` for the call, with the arrays
+    they point into kept alive, plus the reference's integer-width
+    dispatch (anchorer.hpp:1271-1280) and the table width."""
+
+    def __init__(self, graph1, graph2, matches, num_sets, weights, xm1, xm2,
+                 gap_open, gap_extend, local_scale, sources1, sources2,
+                 sinks1, sinks2, num_anchors, max_match_size):
+        from ..path_merge import xmerge_view_arrays
+        n1ptr, n1ind = _csr64(graph1.next_csr())
+        p1ptr, p1ind = _csr64(graph1.prev_csr())
+        n2ptr, n2ind = _csr64(graph2.next_csr())
+        p2ptr, p2ind = _csr64(graph2.prev_csr())
+        (set_n1, set_n2, set_L, set_c1, set_c2, set_fl, w,
+         w1_off, w1, w2_off, w2) = _flatten_match_sets(matches, num_sets,
+                                                       weights)
+        t1, io1, ci1, co1, cn1 = xmerge_view_arrays(xm1)
+        t2, io2, ci2, co2, cn2 = xmerge_view_arrays(xm2)
+
+        def ids(x):
+            return (np.ascontiguousarray(x, dtype=np.int64) if x is not None
+                    else np.empty(0, dtype=np.int64))
+        s1, s2, k1, k2 = (ids(sources1), ids(sources2), ids(sinks1),
+                          ids(sinks2))
+        go = np.ascontiguousarray(gap_open, dtype=np.float64)
+        ge = np.ascontiguousarray(gap_extend, dtype=np.float64)
+        max_diag_diff = graph1.node_size + graph2.node_size
+        self.use_small = (num_sets < 2**32 - 1 and max_match_size < 2**16 - 1
+                          and max_diag_diff < 2**31 - 1
+                          and num_anchors < 2**32 - 1)
+        self.width, t1, io1, t2, io2 = _pair_width(t1, io1, t2, io2)
+        self.num_pairs = int(sum(set_n1[:num_sets] * set_n2[:num_sets]))
+        self.keep = (n1ptr, n1ind, p1ptr, p1ind, n2ptr, n2ind, p2ptr, p2ind,
+                     set_n1, set_n2, set_L, set_c1, set_c2, set_fl, w,
+                     w1_off, w1, w2_off, w2, t1, io1, ci1, co1, cn1,
+                     t2, io2, ci2, co2, cn2, s1, s2, k1, k2, go, ge)
+        self.args = (
+            graph1.node_size, _ptr_i64(n1ptr), _ptr_i64(n1ind),
+            _ptr_i64(p1ptr), _ptr_i64(p1ind),
+            graph2.node_size, _ptr_i64(n2ptr), _ptr_i64(n2ind),
+            _ptr_i64(p2ptr), _ptr_i64(p2ind),
+            len(matches), num_sets, _ptr_i64(set_n1), _ptr_i64(set_n2),
+            _ptr_i64(set_L), _ptr_i64(set_c1), _ptr_i64(set_c2),
+            _ptr_i64(set_fl),
+            _ptr_f64(w), _ptr_i64(w1_off), _ptr_i64(w1), _ptr_i64(w2_off),
+            _ptr_i64(w2),
+            t1.shape[1], _ptr_i64(t1), _ptr_i64(io1), _ptr_i64(ci1),
+            _ptr_i64(co1), _ptr_i64(cn1),
+            t2.shape[1], _ptr_i64(t2), _ptr_i64(io2), _ptr_i64(ci2),
+            _ptr_i64(co2), _ptr_i64(cn2),
+            _ptr_f64(go), _ptr_f64(ge), float(local_scale),
+            len(s1) if sources1 is not None else -1, _ptr_i64(s1),
+            len(s2) if sources2 is not None else -1, _ptr_i64(s2),
+            len(k1) if sinks1 is not None else -1, _ptr_i64(k1),
+            len(k2) if sinks2 is not None else -1, _ptr_i64(k2))
+
+
 def chain_affine_parity(graph1, graph2, matches, num_sets, weights, xm1, xm2,
                         gap_open, gap_extend, local_scale,
                         sources1, sources2, sinks1, sinks2,
@@ -759,59 +825,70 @@ def chain_affine_parity(graph1, graph2, matches, num_sets, weights, xm1, xm2,
     """Reference-exact SparseAffine chaining. Returns ((M,5) int64 rows of
     (set, idx1, idx2, gap_before, gap_after), (M,3) float64 of
     (score, gap_score_before, gap_score_after))."""
-    from ..path_merge import xmerge_view_arrays
-    lib = get_lib()
-    n1ptr, n1ind = _csr64(graph1.next_csr())
-    p1ptr, p1ind = _csr64(graph1.prev_csr())
-    n2ptr, n2ind = _csr64(graph2.next_csr())
-    p2ptr, p2ind = _csr64(graph2.prev_csr())
-    (set_n1, set_n2, set_L, set_c1, set_c2, set_fl, w,
-     w1_off, w1, w2_off, w2) = _flatten_match_sets(matches, num_sets, weights)
-    t1, io1, ci1, co1, cn1 = xmerge_view_arrays(xm1)
-    t2, io2, ci2, co2, cn2 = xmerge_view_arrays(xm2)
-
-    def ids(x):
-        return (np.ascontiguousarray(x, dtype=np.int64) if x is not None
-                else np.empty(0, dtype=np.int64))
-    s1, s2, k1, k2 = ids(sources1), ids(sources2), ids(sinks1), ids(sinks2)
-    ns1 = len(s1) if sources1 is not None else -1
-    ns2 = len(s2) if sources2 is not None else -1
-    nk1 = len(k1) if sinks1 is not None else -1
-    nk2 = len(k2) if sinks2 is not None else -1
+    inp = _AffineInputs(graph1, graph2, matches, num_sets, weights, xm1,
+                        xm2, gap_open, gap_extend, local_scale, sources1,
+                        sources2, sinks1, sinks2, num_anchors,
+                        max_match_size)
     if masked:
         mrows = np.array(sorted(masked), dtype=np.int64).reshape(-1, 3)
     else:
         mrows = np.empty((0, 3), dtype=np.int64)
-    go = np.ascontiguousarray(gap_open, dtype=np.float64)
-    ge = np.ascontiguousarray(gap_extend, dtype=np.float64)
-    # reference width dispatch (anchorer.hpp:1271-1280)
-    max_diag_diff = graph1.node_size + graph2.node_size
-    use_small = (num_sets < 2**32 - 1 and max_match_size < 2**16 - 1
-                 and max_diag_diff < 2**31 - 1 and num_anchors < 2**32 - 1)
-    cap = int(sum(set_n1[:num_sets] * set_n2[:num_sets])) + 1
+    mrows = np.ascontiguousarray(mrows)
+    cap = inp.num_pairs + 1
     out_rows = np.empty((cap, 5), dtype=np.int64)
     out_f = np.empty((cap, 3), dtype=np.float64)
-    width, t1, io1, t2, io2 = _pair_width(t1, io1, t2, io2)
-    nout = lib.chain_affine_parity(
-        graph1.node_size, _ptr_i64(n1ptr), _ptr_i64(n1ind),
-        _ptr_i64(p1ptr), _ptr_i64(p1ind),
-        graph2.node_size, _ptr_i64(n2ptr), _ptr_i64(n2ind),
-        _ptr_i64(p2ptr), _ptr_i64(p2ind),
-        len(matches), num_sets, _ptr_i64(set_n1), _ptr_i64(set_n2),
-        _ptr_i64(set_L), _ptr_i64(set_c1), _ptr_i64(set_c2), _ptr_i64(set_fl),
-        _ptr_f64(w), _ptr_i64(w1_off), _ptr_i64(w1), _ptr_i64(w2_off),
-        _ptr_i64(w2),
-        t1.shape[1], _ptr_i64(t1), _ptr_i64(io1), _ptr_i64(ci1),
-        _ptr_i64(co1), _ptr_i64(cn1),
-        t2.shape[1], _ptr_i64(t2), _ptr_i64(io2), _ptr_i64(ci2),
-        _ptr_i64(co2), _ptr_i64(cn2),
-        _ptr_f64(go), _ptr_f64(ge), float(local_scale),
-        ns1, _ptr_i64(s1), ns2, _ptr_i64(s2),
-        nk1, _ptr_i64(k1), nk2, _ptr_i64(k2),
-        len(mrows), _ptr_i64(np.ascontiguousarray(mrows)),
-        1 if use_small else 0, width,
+    nout = get_lib().chain_affine_parity(
+        *inp.args, len(mrows), _ptr_i64(mrows),
+        1 if inp.use_small else 0, inp.width,
         cap, _ptr_i64(out_rows), _ptr_f64(out_f))
     return out_rows[:nout].copy(), out_f[:nout].copy()
+
+
+class AffineGraphCDQ:
+    """The graph x graph CDQ pass of unmasked SparseAffine chaining
+    (chain_parity.cpp::chain_affine_graph_cdq): `values()` runs the value
+    pass, `annotate(path)` writes a traceback path in chain_affine_parity's
+    output format. Both take the arguments of chain_affine_parity but the
+    mask."""
+
+    def __init__(self, *args):
+        self.inputs = _AffineInputs(*args)
+
+    def values(self):
+        """((dp f32, bp int64, tie u8, struct u8, stored f32, qtime, qfam,
+        qshift, qoff int64, init f32), opt): per anchor in MatchBank id
+        order the chain x chain engine's five outputs, then the winning
+        query's node position in the sweep's order, family (chain1 * C2 +
+        chain2), shift and offset bound (-1 when none won) and the initial
+        dp; opt is the traceback's first anchor (-1 = none). None when the
+        input is outside the engine's reach."""
+        inp = self.inputs
+        n = inp.num_pairs
+        outs = (np.empty(n, dtype=np.float32), np.empty(n, dtype=np.int64),
+                np.empty(n, dtype=np.uint8), np.empty(n, dtype=np.uint8),
+                np.empty(n, dtype=np.float32), np.empty(n, dtype=np.int64),
+                np.empty(n, dtype=np.int64), np.empty(n, dtype=np.int64),
+                np.empty(n, dtype=np.int64), np.empty(n, dtype=np.float32))
+        opt = np.empty(1, dtype=np.int64)
+        rc = get_lib().chain_affine_graph_cdq(
+            *inp.args, 1 if inp.use_small else 0, inp.width,
+            *(a.ctypes.data_as(ctypes.c_void_p) for a in outs),
+            _ptr_i64(opt))
+        if rc != 0:
+            return None
+        return outs, int(opt[0])
+
+    def annotate(self, path):
+        inp = self.inputs
+        path = np.ascontiguousarray(path, dtype=np.int64)
+        m = len(path)
+        out_rows = np.empty((max(m, 1), 5), dtype=np.int64)
+        out_f = np.empty((max(m, 1), 3), dtype=np.float64)
+        got = get_lib().chain_affine_graph_annotate(
+            *inp.args, 1 if inp.use_small else 0, inp.width, m,
+            _ptr_i64(path), _ptr_i64(out_rows), _ptr_f64(out_f))
+        assert got == m
+        return out_rows[:m].copy(), out_f[:m].copy()
 
 
 def chain_affine_cdq(s1, e1, s2, e2, w32, init32, gap_open, gap_extend,
@@ -847,7 +924,9 @@ def chain_affine_cdq(s1, e1, s2, e2, w32, init32, gap_open, gap_extend,
         out_struct.ctypes.data_as(ctypes.c_void_p),
         out_stored.ctypes.data_as(ctypes.c_void_p),
         _ptr_i64(out_qs))
-    assert rc == 0
+    if rc != 0:
+        raise ValueError(f"chain_affine_cdq: {n} anchors exceed the "
+                         f"engine's 32-bit anchor ids")
     return out_dp, out_bp, out_tie, out_struct, out_stored, out_qs
 
 

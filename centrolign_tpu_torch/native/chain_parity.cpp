@@ -10,7 +10,10 @@
 //  - the reference's LIFO-stack topological order (topological_order.hpp:12),
 //  - first-writer-wins update_dp ties (match_bank.hpp:171-183).
 // These encode the tie-breaking that byte-identical CIGAR output depends on
-// (repetitive DNA produces many equal-scoring chains).
+// (repetitive DNA produces many equal-scoring chains). The affine DP's
+// bookkeeping (AffineSweep) also feeds chain_affine_graph_cdq, which solves
+// the same sweep's timeline offline (chain_cdq_core.h) in place of its
+// trees.
 
 #include <cstdint>
 #include <malloc.h>
@@ -25,6 +28,9 @@
 #include <cstdlib>
 #include <chrono>
 #include <deque>
+#include <type_traits>
+
+#include "chain_cdq_core.h"
 
 namespace {
 
@@ -1590,18 +1596,197 @@ struct AffineEngine {
 
 namespace {
 
+// The tree engine's bookkeeping, shared by the sweep (affine_impl) and the
+// offline CDQ pass over the same timeline (affine_graph_cdq_impl), so that
+// every key, weight and time of the two is the same code: MatchBank ids,
+// the shifts with their IntShiftT wrap, the offsets, the lead and final
+// indels, and the traceback's gap annotations (anchorer.hpp:2010-2049,
+// 2290-2462).
+template <typename IntShiftT, typename TI>
+struct AffineSweep {
+    const CsrGraph& g1;
+    const XMergeView<TI>& xm1;
+    const XMergeView<TI>& xm2;
+    const std::vector<MatchSetView>& sets;
+    std::vector<std::vector<i64>> psd1, psd2;
+    AffineEngine<IntShiftT, TI> eng;
+    MatchBankP bank;
+    i64 ns1, ns2, nk1, nk2;
+    const i64 *sources1, *sources2, *sinks1, *sinks2;
+    // flat per-pair endpoint arrays (avoid per-query index decoding)
+    std::vector<i64> e1v, e2v, s1v, s2v;
+    std::vector<i64> sc1, sc2;  // chains_on scratch
+
+    AffineSweep(const CsrGraph& g1_, const CsrGraph& g2_,
+                const XMergeView<TI>& xm1_, const XMergeView<TI>& xm2_,
+                const std::vector<MatchSetView>& sets_, i64 num_sets,
+                const std::unordered_set<u64>* masked,
+                const double* gap_open, const double* gap_extend,
+                double local_scale,
+                i64 ns1_, const i64* sources1_, i64 ns2_,
+                const i64* sources2_, i64 nk1_, const i64* sinks1_,
+                i64 nk2_, const i64* sinks2_)
+        : g1(g1_), xm1(xm1_), xm2(xm2_), sets(sets_),
+          psd1(build_psd(g1_, xm1_)), psd2(build_psd(g2_, xm2_)),
+          eng{g1_, xm1_, xm2_, psd1, psd2, gap_open, gap_extend,
+              local_scale},
+          bank(g1_.V, sets_, num_sets, masked),
+          ns1(ns1_), ns2(ns2_), nk1(nk1_), nk2(nk2_),
+          sources1(sources1_), sources2(sources2_), sinks1(sinks1_),
+          sinks2(sinks2_) {
+        e1v.resize(bank.total_pairs);
+        e2v.resize(bank.total_pairs);
+        s1v.resize(bank.total_pairs);
+        s2v.resize(bank.total_pairs);
+        for (i64 s = 0; s < num_sets; ++s) {
+            const auto& ms = sets[s];
+            for (i64 i = 0; i < ms.n1; ++i) {
+                for (i64 j = 0; j < ms.n2; ++j) {
+                    u64 id = bank.id_of(s, i, j);
+                    s1v[id] = ms.walks1[i * ms.L];
+                    e1v[id] = ms.walks1[i * ms.L + ms.L - 1];
+                    s2v[id] = ms.walks2[j * ms.L];
+                    e2v[id] = ms.walks2[j * ms.L + ms.L - 1];
+                }
+            }
+        }
+    }
+
+    inline IntShiftT source_shift(u64 id, i64 p1, i64 p2) const {
+        return eng.basic_source_shift(e1v[id], e2v[id], p1, p2);
+    }
+    inline IntShiftT query_shift(u64 id, i64 p1, i64 p2) const {
+        return eng.basic_query_shift(s1v[id], s2v[id], p1, p2);
+    }
+    inline u64 key_offset(u64 id, i64 p2) const {
+        return u64(xm2.index_on(e2v[id], p2));
+    }
+    inline u64 query_offset(u64 id, i64 p2) const {
+        // -1 wraps to 0 at the PathMerge's unsigned width; low bits agree
+        // for every in-range value, and (u32)(-1)+1 == (u64)(-1)+1 == 0
+        return u64(xm2.predecessor_index(s2v[id], p2)) + 1;
+    }
+
+    // the anchor weight plus the lead indel from the sources; MININF when
+    // no source reaches the anchor
+    f32 initial_weight(u64 id, f32 weight) {
+        if (ns1 >= 0) {
+            f32 lead = eng.measure_gap_sn(
+                sources1, sources1 + ns1, sources2, sources2 + ns2,
+                s1v[id], s2v[id], sc1, sc2).second;
+            if (lead == MININF) weight = MININF;
+            else weight += lead;
+        }
+        return weight;
+    }
+
+    // traceback prologue: the anchor whose dp plus final indel is largest
+    // and beats the empty chain (ID_MAX = none)
+    u64 select_opt(const f32* dp) {
+        f32 min_score = 0.0f;
+        if (ns1 >= 0 && nk1 >= 0) {
+            // measure_gap_ss: curr loops outer, prev loops inner
+            IntShiftT g = std::numeric_limits<IntShiftT>::max();
+            for (i64 c = 0; c < nk1; ++c)
+                for (i64 d = 0; d < nk2; ++d)
+                    for (i64 a = 0; a < ns1; ++a)
+                        for (i64 b = 0; b < ns2; ++b) {
+                            IntShiftT here = eng.measure_gap(
+                                sources1[a], sources2[b], sinks1[c],
+                                sinks2[d], sc1, sc2);
+                            if (std::abs((long long)here) < g) g = here;
+                        }
+            min_score = eng.score_gap(g);
+        }
+        f32 opt_value = MININF;
+        u64 opt_match = ID_MAX;
+        bank.for_each([&](u64 id, i64 s, i64 i, i64 j) {
+            f32 dp_val = dp[id];
+            f32 final_term = 0.0f;
+            if (nk1 >= 0) {
+                final_term = eng.measure_gap_ns(
+                    e1v[id], e2v[id], sinks1, sinks1 + nk1,
+                    sinks2, sinks2 + nk2, sc1, sc2).second;
+            }
+            if (final_term == MININF) dp_val = final_term;
+            else dp_val += final_term;
+            if (dp_val > opt_value && dp_val > min_score) {
+                opt_value = dp_val;
+                opt_match = id;
+            }
+        });
+        return opt_match;
+    }
+
+    // the chain `rev` (first anchor first) as rows with its gap
+    // annotations (anchorer.hpp:2423-2462); returns its length
+    i64 write_chain(const std::vector<u64>& rev, i64 out_cap, i64* out_rows,
+                    double* out_fvals) {
+        i64 n_out = std::min<i64>((i64)rev.size(), out_cap);
+        std::vector<i64> gap_before(rev.size(), 0), gap_after(rev.size(), 0);
+        std::vector<double> gs_before(rev.size(), 0.0),
+            gs_after(rev.size(), 0.0);
+        for (size_t t = 0; t < rev.size(); ++t) {
+            u64 id = rev[t];
+            if (t == 0) {
+                if (ns1 >= 0) {
+                    auto gp = eng.measure_gap_sn(
+                        sources1, sources1 + ns1, sources2, sources2 + ns2,
+                        s1v[id], s2v[id], sc1, sc2);
+                    gap_before[t] = gp.first;
+                    gs_before[t] = gp.second;
+                }
+            } else {
+                u64 prev = rev[t - 1];
+                IntShiftT g = eng.measure_gap(e1v[prev], e2v[prev],
+                                              s1v[id], s2v[id], sc1, sc2);
+                f32 gsc = eng.score_gap(g);
+                gap_after[t - 1] = g;
+                gs_after[t - 1] = gsc;
+                gap_before[t] = g;
+                gs_before[t] = gsc;
+            }
+            if (t + 1 == rev.size() && nk1 >= 0) {
+                auto gp = eng.measure_gap_ns(e1v[id], e2v[id],
+                                             sinks1, sinks1 + nk1,
+                                             sinks2, sinks2 + nk2, sc1, sc2);
+                gap_after[t] = gp.first;
+                gs_after[t] = gp.second;
+            }
+        }
+        for (i64 t = 0; t < n_out; ++t) {
+            i64 s, i, j;
+            bank.indexes_of(rev[t], &s, &i, &j);
+            i64* row = out_rows + 5 * t;
+            row[0] = s; row[1] = i; row[2] = j;
+            row[3] = gap_before[t]; row[4] = gap_after[t];
+            double* fv = out_fvals + 3 * t;
+            // annotate_scores stores the double anchor weight
+            fv[0] = 0.0;  // filled by caller from set weights
+            fv[1] = gs_before[t];
+            fv[2] = gs_after[t];
+        }
+        return (i64)rev.size();
+    }
+};
+
+template <typename T> struct ShiftTag { using type = T; };
+
 // full affine DP (reference sparse_affine_chain_dp, anchorer.hpp:1812-2470)
 template <typename IntShiftT, typename TI>
-static i64 affine_impl(
-        const CsrGraph& g1, const CsrGraph& g2,
-        const XMergeView<TI>& xm1, const XMergeView<TI>& xm2,
-        const std::vector<MatchSetView>& sets, i64 num_sets,
-        const std::unordered_set<u64>* masked,
-        const double* gap_open, const double* gap_extend, double local_scale,
-        i64 ns1, const i64* sources1, i64 ns2, const i64* sources2,
-        i64 nk1, const i64* sinks1, i64 nk2, const i64* sinks2,
-        i64 out_cap, i64* out_rows, double* out_fvals) {
+static i64 affine_impl(AffineSweep<IntShiftT, TI>& sw, i64 out_cap,
+                       i64* out_rows, double* out_fvals) {
     constexpr int NumPW = 3;
+    const auto& g1 = sw.g1;
+    const auto& xm1 = sw.xm1;
+    const auto& xm2 = sw.xm2;
+    const auto& sets = sw.sets;
+    auto& bank = sw.bank;
+    auto& sc1 = sw.sc1;
+    auto& sc2 = sw.sc2;
+    const double local_scale = sw.eng.local_scale;
+    const double* gap_extend = sw.eng.gap_extend;
+    const double* gap_open = sw.eng.gap_open;
     const i64 C1 = xm1.C, C2 = xm2.C;
     const bool timing = getenv("CHAIN_PARITY_DEBUG") != nullptr;
     auto tick = std::chrono::steady_clock::now();
@@ -1613,50 +1798,20 @@ static i64 affine_impl(
         tick = now;
     };
 
-    auto psd1 = build_psd(g1, xm1);
-    auto psd2 = build_psd(g2, xm2);
-    AffineEngine<IntShiftT, TI> eng{g1, xm1, xm2, psd1, psd2,
-                                    gap_open, gap_extend, local_scale};
-
-    lap("psd");
-    MatchBankP bank(g1.V, sets, num_sets, masked);
-
     using key_t = std::pair<IntShiftT, u64>;    // (shift, match id)
     using gf_key_t = std::pair<u64, u64>;       // (offset, match id)
 
-    // flat per-pair endpoint arrays (avoid per-query index decoding)
-    std::vector<i64> e1v(bank.total_pairs), e2v(bank.total_pairs),
-        s1v(bank.total_pairs), s2v(bank.total_pairs);
-    for (i64 s = 0; s < num_sets; ++s) {
-        const auto& ms = sets[s];
-        for (i64 i = 0; i < ms.n1; ++i) {
-            for (i64 j = 0; j < ms.n2; ++j) {
-                u64 id = bank.id_of(s, i, j);
-                s1v[id] = ms.walks1[i * ms.L];
-                e1v[id] = ms.walks1[i * ms.L + ms.L - 1];
-                s2v[id] = ms.walks2[j * ms.L];
-                e2v[id] = ms.walks2[j * ms.L + ms.L - 1];
-            }
-        }
-    }
-    auto end1_of = [&](u64 id) { return e1v[id]; };
-    auto end2_of = [&](u64 id) { return e2v[id]; };
-    auto start1_of = [&](u64 id) { return s1v[id]; };
-    auto start2_of = [&](u64 id) { return s2v[id]; };
-
     auto source_shift = [&](u64 id, i64 p1, i64 p2) -> IntShiftT {
-        return eng.basic_source_shift(end1_of(id), end2_of(id), p1, p2);
+        return sw.source_shift(id, p1, p2);
     };
     auto query_shift = [&](u64 id, i64 p1, i64 p2) -> IntShiftT {
-        return eng.basic_query_shift(start1_of(id), start2_of(id), p1, p2);
+        return sw.query_shift(id, p1, p2);
     };
     auto key_offset = [&](u64 id, i64 p2) -> u64 {
-        return u64(xm2.index_on(end2_of(id), p2));
+        return sw.key_offset(id, p2);
     };
     auto query_offset = [&](u64 id, i64 p2) -> u64 {
-        // -1 wraps to 0 at the PathMerge's unsigned width; low bits agree
-        // for every in-range value, and (u32)(-1)+1 == (u64)(-1)+1 == 0
-        return u64(xm2.predecessor_index(start2_of(id), p2)) + 1;
+        return sw.query_offset(id, p2);
     };
 
     // ------------- bookkeeping pass (anchorer.hpp:2010-2049)
@@ -1664,18 +1819,9 @@ static i64 affine_impl(
         tree_data(C1);
     for (i64 a = 0; a < C1; ++a) tree_data[a].resize(C2);
 
-    std::vector<i64> sc1, sc2;  // chains_on scratch
     bank.for_each([&](u64 id, i64 s, i64 i, i64 j) {
         const auto& ms = sets[s];
-        f32 weight = ms.weight;
-        if (ns1 >= 0) {
-            f32 lead = eng.measure_gap_sn(
-                sources1, sources1 + ns1, sources2, sources2 + ns2,
-                ms.walks1[i * ms.L], ms.walks2[j * ms.L], sc1, sc2).second;
-            if (lead == MININF) weight = MININF;
-            else weight += lead;
-        }
-        bank.update_dp(id, weight, ID_MAX);
+        bank.update_dp(id, sw.initial_weight(id, ms.weight), ID_MAX);
         xm1.chains_on(ms.walks1[i * ms.L + ms.L - 1], sc1);
         xm2.chains_on(ms.walks2[j * ms.L + ms.L - 1], sc2);
         for (i64 p1 : sc1) {
@@ -1686,7 +1832,6 @@ static i64 affine_impl(
             }
         }
     });
-
     lap("bookkeeping");
     // ------------- ortho trees: one multi-channel tree per (p1, p2) with
     // 2*NumPW value channels (shared keys/layout; independent values)
@@ -1757,7 +1902,7 @@ static i64 affine_impl(
     }
 
     lap("gf build");
-    auto fwd = build_forward_edges(g1, xm1, sets, num_sets);
+    auto fwd = build_forward_edges(g1, xm1, sets, bank.num_sets);
     lap("fwd edges");
 
     // ------------- main sweep (anchorer.hpp:2290-2420)
@@ -1909,7 +2054,7 @@ static i64 affine_impl(
                 (long long)n_ends, t_ends, (long long)n_starts, t_starts);
     lap("main sweep");
     // debug hook: dump per-anchor dp/bp in MatchBank id order (used by the
-    // CDQ engine's validation mode, anchorer.py::_chain_affine_cdq)
+    // CDQ engines' validation mode, anchorer.py::_validate_cdq)
     if (const char* dumpp = getenv("CHAIN_DP_DUMP")) {
         FILE* df = fopen(dumpp, "wb");
         if (!df) {
@@ -1927,92 +2072,138 @@ static i64 affine_impl(
         }
     }
     // ------------- traceback
-    f32 min_score = 0.0f;
-    if (ns1 >= 0 && nk1 >= 0) {
-        // measure_gap_ss: curr loops outer, prev loops inner
-        IntShiftT g = std::numeric_limits<IntShiftT>::max();
-        for (i64 c = 0; c < nk1; ++c)
-            for (i64 d = 0; d < nk2; ++d)
-                for (i64 a = 0; a < ns1; ++a)
-                    for (i64 b = 0; b < ns2; ++b) {
-                        IntShiftT here = eng.measure_gap(
-                            sources1[a], sources2[b], sinks1[c], sinks2[d],
-                            sc1, sc2);
-                        if (std::abs((long long)here) < g) g = here;
-                    }
-        min_score = eng.score_gap(g);
-    }
+    std::vector<u64> rev;
+    for (u64 here = sw.select_opt(bank.dp.data()); here != ID_MAX;
+         here = bank.bp[here])
+        rev.push_back(here);
+    std::reverse(rev.begin(), rev.end());
+    return sw.write_chain(rev, out_cap, out_rows, out_fvals);
+}
 
-    f32 opt_value = MININF;
-    u64 opt_match = ID_MAX;
+// SparseAffine chaining VALUES through the offline CDQ core
+// (chain_cdq_core.h) in place of the sweep's trees, over every (path1,
+// path2) family. The timeline is the sweep's own:
+//  - insert: anchor id into family (p1, p2) for each p1 on end1 and p2 on
+//    end2, at its end1 node's position in ref_topo_order; keys
+//    source_shift / key_offset;
+//  - query: for each forward edge (node_id -> fwd_id, chain1), each start
+//    on fwd_id and each chain2, one query of family (chain1, chain2) at
+//    node_id's position, after that node's inserts; keys query_shift /
+//    query_offset, created in the sweep's visit order.
+// Families without inserts, and queries with an empty offset range, reach
+// nothing and are left out. Per anchor: dp, bp, tie, struct, stored as
+// the chain x chain entry's, the winning query's node position, family
+// (chain1 * C2 + chain2), shift and offset bound (-1 when none won), the
+// initial dp, and in out_opt[0] the traceback's first anchor (-1 = none).
+// Returns 0, or 1 when the timeline is outside the engine's reach (a query
+// shift at IntShiftT's maximum, whose sweep range wraps).
+template <typename IntShiftT, typename TI>
+static i64 affine_graph_cdq_impl(
+        AffineSweep<IntShiftT, TI>& sw, float* out_dp, i64* out_bp,
+        uint8_t* out_tie, uint8_t* out_struct, float* out_stored,
+        i64* out_qtime, i64* out_qfam, i64* out_qshift, i64* out_qoff,
+        float* out_init, i64* out_opt) {
+    const auto& xm1 = sw.xm1;
+    const auto& xm2 = sw.xm2;
+    const auto& sets = sw.sets;
+    auto& bank = sw.bank;
+    auto& sc1 = sw.sc1;
+    auto& sc2 = sw.sc2;
+    const i64 C2 = xm2.C;
+    const i64 n = (i64)bank.total_pairs;
+    const bool timing = getenv("CHAIN_PARITY_DEBUG") != nullptr;
+    auto tick = std::chrono::steady_clock::now();
+    auto lap = [&](const char* what) {
+        if (!timing) return;
+        auto now = std::chrono::steady_clock::now();
+        fprintf(stderr, "[affine-cdq] %s: %.2fs\n", what,
+                std::chrono::duration<double>(now - tick).count());
+        tick = now;
+    };
+
+    std::vector<f32> w(n);
+    std::vector<char> has_ins(xm1.C * C2, 0), has_query(xm1.C * C2, 0);
     bank.for_each([&](u64 id, i64 s, i64 i, i64 j) {
-        f32 dp_val = bank.dp[id];
-        f32 final_term = 0.0f;
-        if (nk1 >= 0) {
-            final_term = eng.measure_gap_ns(
-                end1_of(id), end2_of(id), sinks1, sinks1 + nk1,
-                sinks2, sinks2 + nk2, sc1, sc2).second;
+        w[id] = sets[s].weight;
+        out_init[id] = MININF;
+        f32 weight = sw.initial_weight(id, w[id]);
+        if (weight > out_init[id]) out_init[id] = weight;
+        xm1.chains_on(sw.e1v[id], sc1);
+        xm2.chains_on(sw.e2v[id], sc2);
+        for (i64 p1 : sc1)
+            for (i64 p2 : sc2) has_ins[p1 * C2 + p2] = 1;
+    });
+
+    lap("bookkeeping");
+    std::vector<i64> order = ref_topo_order(sw.g1);
+    std::vector<i64> rank(sw.g1.V);
+    for (i64 r = 0; r < (i64)order.size(); ++r) rank[order[r]] = r;
+    auto fwd = build_forward_edges(sw.g1, xm1, sets, bank.num_sets);
+
+    centrolign_cdq::Timeline tl;
+    std::vector<i64> q_time;  // per query event: its node's position
+    std::vector<int32_t> q_fam;
+    for (i64 node_id : order) {
+        for (const auto& edge : fwd[node_id]) {
+            i64 chain1 = edge.second;
+            bool wraps = false;
+            bank.for_starts_on(edge.first, [&](u64 id, i64, i64, i64) {
+                for (i64 chain2 = 0; chain2 < C2; ++chain2) {
+                    i64 f = chain1 * C2 + chain2;
+                    u64 offset = sw.query_offset(id, chain2);
+                    if (!has_ins[f] || offset == 0) continue;
+                    IntShiftT query = sw.query_shift(id, chain1, chain2);
+                    if (query == std::numeric_limits<IntShiftT>::max())
+                        wraps = true;
+                    has_query[f] = 1;
+                    tl.add(0, (i64)id, f, (i64)query, (i64)offset,
+                           2 * rank[node_id] + 1);
+                    q_time.push_back(rank[node_id]);
+                    q_fam.push_back((int32_t)f);
+                }
+            });
+            if (wraps) return 1;
         }
-        if (final_term == MININF) dp_val = final_term;
-        else dp_val += final_term;
-        if (dp_val > opt_value && dp_val > min_score) {
-            opt_value = dp_val;
-            opt_match = id;
+    }
+    decltype(fwd)().swap(fwd);
+    bank.for_each([&](u64 id, i64, i64, i64) {
+        xm1.chains_on(sw.e1v[id], sc1);
+        xm2.chains_on(sw.e2v[id], sc2);
+        for (i64 p1 : sc1) {
+            for (i64 p2 : sc2) {
+                i64 f = p1 * C2 + p2;
+                if (!has_query[f]) continue;
+                tl.add(1, (i64)id, f, (i64)sw.source_shift(id, p1, p2),
+                       (i64)sw.key_offset(id, p2), 2 * rank[sw.e1v[id]]);
+            }
         }
     });
 
-    std::vector<u64> rev;
-    for (u64 here = opt_match; here != ID_MAX; here = bank.bp[here])
-        rev.push_back(here);
-    std::reverse(rev.begin(), rev.end());
-
-    // gap annotations (anchorer.hpp:2423-2462)
-    i64 n_out = std::min<i64>((i64)rev.size(), out_cap);
-    std::vector<i64> gap_before(rev.size(), 0), gap_after(rev.size(), 0);
-    std::vector<double> gs_before(rev.size(), 0.0), gs_after(rev.size(), 0.0);
-    for (size_t t = 0; t < rev.size(); ++t) {
-        u64 id = rev[t];
-        if (t == 0) {
-            if (ns1 >= 0) {
-                auto gp = eng.measure_gap_sn(
-                    sources1, sources1 + ns1, sources2, sources2 + ns2,
-                    start1_of(id), start2_of(id), sc1, sc2);
-                gap_before[t] = gp.first;
-                gs_before[t] = gp.second;
-            }
-        } else {
-            u64 prev = rev[t - 1];
-            IntShiftT g = eng.measure_gap(end1_of(prev), end2_of(prev),
-                                          start1_of(id), start2_of(id),
-                                          sc1, sc2);
-            f32 gsc = eng.score_gap(g);
-            gap_after[t - 1] = g;
-            gs_after[t - 1] = gsc;
-            gap_before[t] = g;
-            gs_before[t] = gsc;
+    lap("timeline");
+    std::vector<i64> win(n);
+    centrolign_cdq::Outputs out{out_dp, out_bp, out_tie, out_struct,
+                                out_stored, win.data()};
+    if (!centrolign_cdq::affine_values(
+            tl, n, w.data(), out_init, sw.eng.gap_open, sw.eng.gap_extend,
+            sw.eng.local_scale, out))
+        return 1;
+    lap("values");
+    for (i64 a = 0; a < n; ++a) {
+        i64 e = win[a];
+        if (e < 0) {
+            out_qtime[a] = out_qfam[a] = out_qshift[a] = out_qoff[a] = -1;
+            continue;
         }
-        if (t + 1 == rev.size() && nk1 >= 0) {
-            auto gp = eng.measure_gap_ns(end1_of(id), end2_of(id),
-                                         sinks1, sinks1 + nk1,
-                                         sinks2, sinks2 + nk2, sc1, sc2);
-            gap_after[t] = gp.first;
-            gs_after[t] = gp.second;
-        }
+        i64 f = q_fam[e];
+        out_qtime[a] = q_time[e];
+        out_qfam[a] = f;
+        out_qshift[a] = (i64)sw.query_shift((u64)a, f / C2, f % C2);
+        out_qoff[a] = (i64)sw.query_offset((u64)a, f % C2);
     }
-
-    for (i64 t = 0; t < n_out; ++t) {
-        i64 s, i, j;
-        bank.indexes_of(rev[t], &s, &i, &j);
-        i64* row = out_rows + 5 * t;
-        row[0] = s; row[1] = i; row[2] = j;
-        row[3] = gap_before[t]; row[4] = gap_after[t];
-        double* fv = out_fvals + 3 * t;
-        // annotate_scores stores the double anchor weight
-        fv[0] = 0.0;  // filled by caller from set weights
-        fv[1] = gs_before[t];
-        fv[2] = gs_after[t];
-    }
-    return (i64)rev.size();
+    u64 opt = sw.select_opt(out_dp);
+    out_opt[0] = opt == ID_MAX ? -1 : (i64)opt;
+    lap("traceback prologue");
+    return 0;
 }
 
 }  // namespace
@@ -2060,6 +2251,15 @@ i64 chain_affine_parity(
     }
     const std::unordered_set<u64>* mp = n_masked ? &masked : nullptr;
 
+    auto tree = [&](auto tag, const auto& xm1, const auto& xm2) -> i64 {
+        using IntShiftT = typename decltype(tag)::type;
+        using TI = std::decay_t<decltype(xm1.table[0])>;
+        AffineSweep<IntShiftT, TI> sw(
+            g1, g2, xm1, xm2, sets, num_sets, mp, gap_open, gap_extend,
+            local_scale, ns1, sources1, ns2, sources2, nk1, sinks1, nk2,
+            sinks2);
+        return affine_impl(sw, out_cap, out_rows, out_fvals);
+    };
     i64 n;
     if (table_width == 4) {
         XMergeView<int32_t> xm1{V1, C1, (const int32_t*)table1,
@@ -2068,33 +2268,15 @@ i64 chain_affine_parity(
         XMergeView<int32_t> xm2{V2, C2, (const int32_t*)table2,
                                 (const int32_t*)index_on2, chainid2, choff2,
                                 chnodes2};
-        n = use_small
-            ? affine_impl<int32_t, int32_t>(
-                  g1, g2, xm1, xm2, sets, num_sets, mp,
-                  gap_open, gap_extend, local_scale,
-                  ns1, sources1, ns2, sources2, nk1, sinks1, nk2, sinks2,
-                  out_cap, out_rows, out_fvals)
-            : affine_impl<int64_t, int32_t>(
-                  g1, g2, xm1, xm2, sets, num_sets, mp,
-                  gap_open, gap_extend, local_scale,
-                  ns1, sources1, ns2, sources2, nk1, sinks1, nk2, sinks2,
-                  out_cap, out_rows, out_fvals);
+        n = use_small ? tree(ShiftTag<int32_t>{}, xm1, xm2)
+                      : tree(ShiftTag<int64_t>{}, xm1, xm2);
     } else {
         XMergeView<i64> xm1{V1, C1, (const i64*)table1, (const i64*)index_on1,
                             chainid1, choff1, chnodes1};
         XMergeView<i64> xm2{V2, C2, (const i64*)table2, (const i64*)index_on2,
                             chainid2, choff2, chnodes2};
-        n = use_small
-            ? affine_impl<int32_t, i64>(
-                  g1, g2, xm1, xm2, sets, num_sets, mp,
-                  gap_open, gap_extend, local_scale,
-                  ns1, sources1, ns2, sources2, nk1, sinks1, nk2, sinks2,
-                  out_cap, out_rows, out_fvals)
-            : affine_impl<int64_t, i64>(
-                  g1, g2, xm1, xm2, sets, num_sets, mp,
-                  gap_open, gap_extend, local_scale,
-                  ns1, sources1, ns2, sources2, nk1, sinks1, nk2, sinks2,
-                  out_cap, out_rows, out_fvals);
+        n = use_small ? tree(ShiftTag<int32_t>{}, xm1, xm2)
+                      : tree(ShiftTag<int64_t>{}, xm1, xm2);
     }
     // annotate_scores: double anchor weight per row
     for (i64 t = 0; t < std::min(n, out_cap); ++t) {
@@ -2104,6 +2286,111 @@ i64 chain_affine_parity(
 }
 
 }  // extern "C"
+
+// The two entries of the graph x graph CDQ pass share the affine engine's
+// inputs, as chain_affine_parity takes them but for the mask.
+#define AFFINE_INPUTS                                                        \
+        i64 V1, const i64 *n1ptr, const i64 *n1ind, const i64 *p1ptr,        \
+        const i64 *p1ind,                                                    \
+        i64 V2, const i64 *n2ptr, const i64 *n2ind, const i64 *p2ptr,        \
+        const i64 *p2ind,                                                    \
+        i64 num_sets_total, i64 num_sets, const i64 *set_n1,                 \
+        const i64 *set_n2, const i64 *set_L, const i64 *set_count1,          \
+        const i64 *set_count2, const i64 *set_full_length,                   \
+        const double *set_weight,                                            \
+        const i64 *walks1_off, const i64 *walks1_flat,                       \
+        const i64 *walks2_off, const i64 *walks2_flat,                       \
+        i64 C1, const void *table1, const void *index_on1,                   \
+        const i64 *chainid1, const i64 *choff1, const i64 *chnodes1,         \
+        i64 C2, const void *table2, const void *index_on2,                   \
+        const i64 *chainid2, const i64 *choff2, const i64 *chnodes2,         \
+        const double *gap_open, const double *gap_extend,                    \
+        double local_scale,                                                  \
+        i64 ns1, const i64 *sources1, i64 ns2, const i64 *sources2,          \
+        i64 nk1, const i64 *sinks1, i64 nk2, const i64 *sinks2,              \
+        int use_small, int table_width
+
+namespace {
+
+// builds the unmasked AffineSweep of the inputs at the shift width
+// (use_small) and table width they ask for, and returns f(sweep)
+#define WITH_AFFINE_SWEEP(f)                                                 \
+    CsrGraph g1{V1, n1ptr, n1ind, p1ptr, p1ind};                             \
+    CsrGraph g2{V2, n2ptr, n2ind, p2ptr, p2ind};                             \
+    std::vector<MatchSetView> sets(num_sets_total);                          \
+    for (i64 s = 0; s < num_sets_total; ++s) {                               \
+        sets[s] = MatchSetView{                                              \
+            set_n1[s], set_n2[s], set_L[s],                                  \
+            walks1_flat + walks1_off[s], walks2_flat + walks2_off[s],        \
+            set_count1[s], set_count2[s], set_full_length[s],                \
+            f32(set_weight[s])};                                             \
+    }                                                                        \
+    auto run = [&](auto tag, const auto& xm1, const auto& xm2) -> i64 {      \
+        using IntShiftT = typename decltype(tag)::type;                      \
+        using TI = std::decay_t<decltype(xm1.table[0])>;               \
+        AffineSweep<IntShiftT, TI> sw(                                       \
+            g1, g2, xm1, xm2, sets, num_sets, nullptr, gap_open,             \
+            gap_extend, local_scale, ns1, sources1, ns2, sources2,           \
+            nk1, sinks1, nk2, sinks2);                                       \
+        return f(sw);                                                        \
+    };                                                                       \
+    if (table_width == 4) {                                                  \
+        XMergeView<int32_t> xm1{V1, C1, (const int32_t*)table1,              \
+                                (const int32_t*)index_on1, chainid1,         \
+                                choff1, chnodes1};                           \
+        XMergeView<int32_t> xm2{V2, C2, (const int32_t*)table2,              \
+                                (const int32_t*)index_on2, chainid2,         \
+                                choff2, chnodes2};                           \
+        return use_small ? run(ShiftTag<int32_t>{}, xm1, xm2)                \
+                         : run(ShiftTag<int64_t>{}, xm1, xm2);               \
+    }                                                                        \
+    XMergeView<i64> xm1{V1, C1, (const i64*)table1, (const i64*)index_on1,   \
+                        chainid1, choff1, chnodes1};                         \
+    XMergeView<i64> xm2{V2, C2, (const i64*)table2, (const i64*)index_on2,   \
+                        chainid2, choff2, chnodes2};                         \
+    return use_small ? run(ShiftTag<int32_t>{}, xm1, xm2)                    \
+                     : run(ShiftTag<int64_t>{}, xm1, xm2);
+
+}  // namespace
+
+extern "C" {
+
+// SparseAffine chaining values of unmasked inputs through the CDQ core
+// (affine_graph_cdq_impl): per-anchor outputs in MatchBank id order.
+i64 chain_affine_graph_cdq(
+        AFFINE_INPUTS, float* out_dp, i64* out_bp, uint8_t* out_tie,
+        uint8_t* out_struct, float* out_stored, i64* out_qtime,
+        i64* out_qfam, i64* out_qshift, i64* out_qoff, float* out_init,
+        i64* out_opt) {
+    auto values = [&](auto& sw) {
+        return affine_graph_cdq_impl(
+            sw, out_dp, out_bp, out_tie, out_struct, out_stored, out_qtime,
+            out_qfam, out_qshift, out_qoff, out_init, out_opt);
+    };
+    WITH_AFFINE_SWEEP(values)
+}
+
+// The chain `path` (MatchBank ids, first anchor first) in
+// chain_affine_parity's output format: rows (set, idx1, idx2, gap_before,
+// gap_after) and (score, gap_score_before, gap_score_after).
+i64 chain_affine_graph_annotate(
+        AFFINE_INPUTS, i64 path_len, const i64* path, i64* out_rows,
+        double* out_fvals) {
+    auto annotate = [&](auto& sw) {
+        std::vector<u64> rev(path, path + path_len);
+        i64 m = sw.write_chain(rev, path_len, out_rows, out_fvals);
+        // annotate_scores: double anchor weight per row
+        for (i64 t = 0; t < m; ++t)
+            out_fvals[3 * t] = set_weight[out_rows[5 * t]];
+        return m;
+    };
+    WITH_AFFINE_SWEEP(annotate)
+}
+
+}  // extern "C"
+
+#undef WITH_AFFINE_SWEEP
+#undef AFFINE_INPUTS
 
 // PathMerge table construction (reference path_merge.hpp:96-165): index_on,
 // path_head, and the last-to-reach table over the given paths (+ optional
