@@ -7,7 +7,11 @@ The cell's jobs are written as a run writes them (portbench/traffic.py,
 from the mix's data seed), the command runs once a job with the job's CLI
 arguments appended, in the environment the configuration adds, and each
 job's standard output is stored under portbench/expected/ by the job's
-key (reference/expected.py). A command that fails stores nothing.
+key (reference/expected.py). A job of a configuration with "params"
+runs as "-C <file>" plus its CLI arguments, as in a run, and the
+reference CLI has to take -C as the port does (the JAX CLI does; any
+logging option in `command` is overridden by the file). A command that
+fails stores nothing.
 PERF.md names the reference CLI the committed files came from and how it
 was run; a benchmark run never runs this.
 """

@@ -2,7 +2,12 @@
 
 A job is keyed by what it computes: its output's kind and its CLI
 arguments, each argument that names a file replaced by the SHA-256 of the
-file's bytes, so the key holds wherever the inputs were written. Its
+file's bytes, so the key holds wherever the inputs were written. A
+parameter file (the argument after -C, reference/paramfile.py) is keyed by
+its parameters instead: fasta_name and tree_name by the SHA-256 of the
+files they name, logging_level left out (a traced run writes 3 there), and
+every other parameter by its value, so that a change to any of them
+changes the key. Its
 expected output is `portbench/expected/<key>.gz`, written by
 `portbench/expect.py` from a reference CLI (PERF.md says which). A cell
 whose data is fixed ships the expected output of every job it can send;
@@ -18,6 +23,8 @@ import hashlib
 import json
 import os
 
+from . import paramfile
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 EXPECTED = os.path.join(os.path.dirname(HERE), "expected")
 
@@ -27,10 +34,29 @@ def _digest(path: str) -> str:
         return hashlib.sha256(f.read()).hexdigest()
 
 
+def _params(path: str) -> list:
+    """[[name, value]] of a parameter file, sorted, the input files by
+    content and the logging level left out."""
+    with open(path) as f:
+        params = paramfile.parse(f.read())
+    params.pop("logging_level", None)
+    for name in ("fasta_name", "tree_name"):
+        if params.get(name):
+            params[name] = f"file:{_digest(params[name])}"
+    return sorted([name, value] for name, value in params.items())
+
+
 def key(mode: str, argv: list) -> str:
-    """The job's key: its output kind and arguments, files by content."""
-    words = [mode] + [f"file:{_digest(a)}" if os.path.isfile(a)
-                      else f"arg:{a}" for a in argv]
+    """The job's key: its output kind and arguments, files by content and
+    a parameter file by its parameters."""
+    words = [mode]
+    for k, a in enumerate(argv):
+        if not os.path.isfile(a):
+            words.append(f"arg:{a}")
+        elif k and argv[k - 1] == "-C":
+            words.append(f"params:{json.dumps(_params(a))}")
+        else:
+            words.append(f"file:{_digest(a)}")
     return hashlib.sha256(json.dumps(words).encode()).hexdigest()[:32]
 
 

@@ -159,7 +159,7 @@ def drive(cell: dict, seed: int, seconds: float, trace: bool,
             try:
                 groups = traffic.cohorts(config, cell["traffic"], root)
                 made["jobs"] = traffic.jobs_of(config, groups, work_dir,
-                                               cell["traffic"])
+                                               cell["traffic"], trace)
             except Exception as e:  # reported once the client is ready
                 made["error"] = e
             made["seconds"] = time.perf_counter() - t

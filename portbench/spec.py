@@ -4,7 +4,15 @@ A cell `<name>` of BENCHMARK.json's "workloads" names a configuration and
 a traffic mix; the harness reads
 
 - portbench/configs/<config>.json: the deployment (mode, CLI arguments,
-  environment, the simulated cohort, the output's kind);
+  environment, the simulated cohort, the output's kind), and optionally
+  "params": upstream parameters by their `centrolign -G` names, for those
+  that only a parameter file sets. Each job of such a configuration runs
+  as "-C <file>" plus its CLI arguments, the file written beside the
+  job's FASTA with the parameters, the FASTA (and tree) and, in a traced
+  run, logging level 3 (reference/paramfile.py); `cell` refuses CLI
+  arguments that -C would override. The job's expected output is keyed by
+  the parameters, the input files by content and the logging level left
+  out (reference/expected.py);
 - portbench/traffic/<traffic>.json: the jobs a run sends (cohorts, their
   data seed, how many of their jobs);
 - portbench/expected/<key>.gz: the expected output of each job
@@ -24,6 +32,8 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+
+from .reference import paramfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -55,6 +65,8 @@ def cell(name: str, root: str = ROOT) -> dict:
                              f"{own.get(key)!r}, BENCHMARK.json "
                              f"{entry[key]!r}")
     config = _load(os.path.join(here, "configs", f"{entry['config']}.json"))
+    if "params" in config:
+        paramfile.check(config)
     traffic = _load(os.path.join(here, "traffic", f"{entry['traffic']}.json"))
 
     def applies(metric):

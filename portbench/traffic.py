@@ -6,8 +6,9 @@ a cohort's haplotypes, one CIGAR each; "msa": the whole cohort down the
 configuration's guide tree, one GFA), the cohort's "tree" (the simulator's
 generations on each branch; its leaves are the haplotypes), the
 "ancestor" and its "annotation" under portbench/, the simulator's
-"rates" (the tool's defaults where unset) and the "cli_args" every job
-adds. A traffic mix fixes the load:
+"rates" (the tool's defaults where unset), the "cli_args" every job
+adds, and optionally "params", upstream parameters that a parameter file
+written for each job sets (`jobs_of`). A traffic mix fixes the load:
 
 - "cohorts": cohorts simulated for a run, all from the mix's
   "data_seed", so that every run has the same work (runs whose cohorts
@@ -32,6 +33,7 @@ import os
 import numpy as np
 
 from . import simulate
+from .reference import paramfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -106,11 +108,19 @@ def chosen(n_sets: int, traffic: dict) -> list:
     return sorted(int(x) for x in perm[:k])
 
 
-def jobs_of(config: dict, groups: list, out_dir: str, traffic: dict) -> list:
+def jobs_of(config: dict, groups: list, out_dir: str, traffic: dict,
+            trace: bool = False) -> list:
     """The run's jobs of the cohorts: {"id", "fasta", "argv", "kbp",
-    "output"} each, their inputs written under out_dir."""
+    "output", "params"} each, their inputs written under out_dir. A job's
+    argv is the configuration's "cli_args", then "-T <tree>" in msa mode,
+    then the FASTA; where the configuration states "params" (upstream
+    parameters, reference/paramfile.py) it is the "cli_args", then
+    "-C <file>", the job's parameter file beside its FASTA, which carries
+    logging level 3 when `trace` (the traced run's stage split reads the
+    -v 3 log), and the job's "params" is true."""
     jobs = []
     mode = config["mode"]
+    params = config.get("params")
     sets = job_sets(config, groups)
     for s in chosen(len(sets), traffic):
         c, names = sets[s]
@@ -119,15 +129,22 @@ def jobs_of(config: dict, groups: list, out_dir: str, traffic: dict) -> list:
         fasta = os.path.join(out_dir, f"job{k}.fasta")
         write_fasta(fasta, [(n, cohort[n]) for n in names])
         argv = [*config.get("cli_args", [])]
+        tree = None
         if mode == "msa":
             tree = os.path.join(out_dir, f"job{k}.nwk")
             with open(tree, "w") as f:
                 f.write(config["tree"].strip() + "\n")
-            argv += ["-T", tree]
+        if params is None:
+            argv += [*(["-T", tree] if tree else []), fasta]
+        else:
+            cfg = os.path.join(out_dir, f"job{k}.cfg")
+            paramfile.write(cfg, params, fasta, tree, 3 if trace else None)
+            argv += ["-C", cfg]
         jobs.append({"id": k, "cohort": c, "names": list(names),
-                     "fasta": fasta, "argv": [*argv, fasta],
+                     "fasta": fasta, "argv": argv,
                      "kbp": sum(len(cohort[n]) for n in names) / 1000,
-                     "output": config["output"]})
+                     "output": config["output"],
+                     "params": params is not None})
     return jobs
 
 

@@ -23,7 +23,7 @@ handed to `gotoh_dispatch`, the alignments and scores `gotoh_fetch`
 returns) and keeps the output, and notes the job's CPU seconds, which
 say whether the process waited or ran slower. The recorded jobs and outputs go to a file in the run's
 directory for the reference to judge once the worker has exited. With --trace 1 the jobs run at -v 3 (the stage split reads their
-logs), and a torch.profiler trace of the card's activity, kept from
+logs; a job with a parameter file has logging level 3 written there), and a torch.profiler trace of the card's activity, kept from
 before the window to its end, gives the busy intervals and the kernels'
 times.
 """
@@ -201,7 +201,8 @@ def main() -> int:
         recorder.job_id = job["id"]
         cpu0 = _cpu_s()
         start, e_start = time.perf_counter(), time.time()
-        rc, out, err, error = run_cli(cli, [*extra, *job["argv"]])
+        rc, out, err, error = run_cli(
+            cli, [*([] if job["params"] else extra), *job["argv"]])
         sync()
         end, e_end = time.perf_counter(), time.time()
         if rss_first is None:
