@@ -310,6 +310,11 @@ class Anchorer:
             sources1, sources2, sinks1, sinks2, budget, algorithm, scale,
             masked_matches)
         if self.do_fill_in_anchoring:
+            if masked_matches is not None:
+                # the tree engine's freed working set, beneath the
+                # fill-in's threads' own heaps
+                from .utils.memory import release_free_heap
+                release_free_heap()
             self._fill_in_anchor_chain(
                 anchors, matches, graph1, graph2, tableau1, tableau2,
                 xmerge1, xmerge2, algorithm, scale, masked_matches)
@@ -881,8 +886,9 @@ class Anchorer:
         (chain_affine_parity) takes masked (cyclization) chains, inputs
         outside the engines' reach, a chaining whose tied step the replica
         cannot resolve, and everything with CENTROLIGN_TPU_CHAIN_CDQ=0.
-        Records the anchors under metrics tags chain.cdq, chain.tree and
-        chain.tree_fallback (masked chains are not counted)."""
+        Records the anchors and seconds under metrics tags chain.cdq,
+        chain.tree and chain.tree_fallback, and a masked chaining's under
+        chain.masked."""
         import os
         from .native import chain_affine_parity
 
@@ -914,10 +920,10 @@ class Anchorer:
                 xmerge2, self.gap_open, self.gap_extend, scale,
                 sources1, sources2, sinks1, sinks2,
                 num_anchors, max_match_size, masked)
-        if not masked:
-            cells = sum(len(m.walks1) * len(m.walks2)
-                        for m in matches[:num_sets])
-            metrics.record(tag, cells, metrics.timer() - t0)
+        cells = sum(len(m.walks1) * len(m.walks2)
+                    for m in matches[:num_sets])
+        metrics.record("chain.masked" if masked else tag, cells,
+                       metrics.timer() - t0)
         return res
 
     # ------------------------------------------------------------------

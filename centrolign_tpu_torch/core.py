@@ -23,7 +23,7 @@ import torch
 
 from . import logging as logmod
 from . import metrics
-from .utils.memory import log_memory_usage
+from .utils.memory import log_memory_usage, release_free_heap
 from .anchorer import Anchorer, ChainAlgorithm
 from .alignment import fuse, internal_fuse, cigar as cigar_of
 from .bonder import Bonder
@@ -183,14 +183,21 @@ def leaf_bond_alignments(sub, scale, matches, chain, anchorer, bonder,
             f"Beginning round {rnd + 1} of tandem duplication "
             f"detection for sequence {sub.name}.")
         with metrics.span("bond.chain"):
-            secondary_chain = anchorer.anchor_chain(
-                matches, sub.graph, sub.graph, sub.tableau,
-                sub.tableau, path_merge, path_merge,
-                masked_matches=mask, override_scale=scale)
-            bonds = bonder.identify_bonds(
-                sub.graph, sub.graph, sub.tableau, sub.tableau,
-                path_merge, path_merge, chain, secondary_chain)
-            bonds = bonder.deduplicate_self_bonds(bonds)
+            # what calibration or the last round freed, before the masked
+            # chaining's peak
+            release_free_heap()
+            with metrics.span("bond.anchor"):
+                secondary_chain = anchorer.anchor_chain(
+                    matches, sub.graph, sub.graph, sub.tableau,
+                    sub.tableau, path_merge, path_merge,
+                    masked_matches=mask, override_scale=scale)
+            with metrics.span("bond.identify"):
+                bonds = bonder.identify_bonds(
+                    sub.graph, sub.graph, sub.tableau, sub.tableau,
+                    path_merge, path_merge, chain, secondary_chain)
+                bonds = bonder.deduplicate_self_bonds(bonds)
+        for bond in bonds:
+            metrics.record("bond.found", sum(b.length for b in bond), 0.0)
         logmod.log(logmod.Verbose,
                    f"Found {len(bonds)} tandem duplications in this round.")
         if not bonds:
@@ -264,6 +271,10 @@ class Core:
                 self.calibrate_anchor_scores_and_identify_bonds()
         elif not self.skip_calibration or self.cyclize_tandem_duplications:
             bond_alignments = self.calibrate_anchor_scores_and_identify_bonds()
+            if self.cyclize_tandem_duplications:
+                # the leaves' self-matches and bonding rounds, freed,
+                # before the tree's first match finding
+                release_free_heap()
         if self.cyclize_tandem_duplications and self.subproblems_prefix \
                 and self._restarted_bond_alignments is None:
             self.emit_restart_bonds(bond_alignments)
@@ -443,8 +454,10 @@ class Core:
                 aln[m1, 0] = path[aln[m1, 0]]
                 aln[m2, 1] = path[aln[m2, 1]]
                 alns.append(aln)
-            fused, tab, _ = internal_fuse(root.graph, alns, root.tableau)
-            fused = simplify_bubbles(fused, tab)
+            with metrics.span("cyclize.fuse"):
+                fused, tab, _ = internal_fuse(root.graph, alns, root.tableau)
+            with metrics.span("cyclize.simplify"):
+                fused = simplify_bubbles(fused, tab)
             logmod.log(logmod.Debug,
                        f"Cyclized graph reduces from {root.graph.node_size} "
                        f"to {fused.node_size} nodes after merging.")

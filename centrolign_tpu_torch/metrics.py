@@ -10,7 +10,10 @@ CENTROLIGN_TPU_INSTRUMENT=1.
 Aligner tags (matching the reference's): 'po' full-matrix PO-POA (host),
 'pod' PO-POA on the device kernel (its seconds: the stitch's device.wait),
 'w' pruned WFA, 'ad1'/'ad2' deletion WFA, 'pd1'/'pd2' pure deletion, 'u'
-unalignable (greedy partial).
+unalignable (greedy partial). Other tags: each SparseAffine chaining's
+anchors and seconds by engine ('chain.cdq', 'chain.tree',
+'chain.tree_fallback'; a masked -c chaining 'chain.masked'), and -c's
+'bond.found', one record a bond, its length in bp as cells.
 
 Spans sit at layer boundaries, never per gap (the per-gap facts are the
 counters'), and are always on: `with span(name):` records the name, the
@@ -27,8 +30,11 @@ collects them. One `cli.main` call gives this tree:
       calibration             the leaves' scales
         calibration.match     find_matches of a leaf against itself
         calibration.chain     ChainMerge and estimate_score_scale
-      bond.chain              -c: a round's masked anchor_chain,
-                              identify_bonds, and the mask's update
+      bond.chain              -c: a round's bonds found, then the
+                              mask's update (its self time: the mask,
+                              and the C heap's free pages handed back)
+        bond.anchor           the masked anchor_chain of a leaf with itself
+        bond.identify         identify_bonds, deduplicate_self_bonds
       bond.stitch             -c: a round's internal stitches and their
                               step-index translation
         stitch                one internal stitch
@@ -42,6 +48,8 @@ collects them. One `cli.main` call gives this tree:
           device.wait         the host blocked on the card
         fuse                  fuse_step
       cyclize                 -c: the bonds fused into the root
+        cyclize.fuse          internal_fuse
+        cyclize.simplify      simplify_bubbles
       polish                  -c: its realignment subproblems inside
       output                  the CIGAR or GFA written
 

@@ -30,6 +30,23 @@ def max_memory_usage() -> int:
     return ru.ru_maxrss * 1024  # linux reports KiB
 
 
+_malloc_trim = None
+
+
+def release_free_heap() -> None:
+    """Hand the C heap's free pages back to the system: glibc's
+    malloc_trim(0), over the main arena and every thread's; a no-op where
+    the C library has none. A stage's freed memory otherwise stays
+    resident under the next stage's peak, in amounts that vary from run to
+    run with which threads freed it."""
+    global _malloc_trim
+    if _malloc_trim is None:
+        import ctypes
+        _malloc_trim = getattr(ctypes.CDLL(None), "malloc_trim", False)
+    if _malloc_trim:
+        _malloc_trim(0)
+
+
 def format_memory_usage(mem: int) -> str:
     """Reader-friendly size (reference src/utility.cpp:222-246)."""
     memd = float(mem)
