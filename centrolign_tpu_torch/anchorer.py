@@ -32,8 +32,10 @@ package's device_ready() gate: the CUDA kernels on a card, their plain
 versions on the CPU, and the native engines when the device is None. A
 device failure raises; nothing falls back to the native engine. Unmasked
 SparseAffine chaining of inputs that are not chain x chain (the MSA's
-graph x graph merges) takes the graph x graph CDQ engine, which the JAX
-package does not have; its chains are the tree engine's (_chain_affine).
+graph x graph merges) takes the graph x graph CDQ engine, and masked (-c)
+chain x chain chaining the one-family CDQ engine over the anchors the mask
+leaves, which the JAX package does not have; their chains are the tree
+engine's (_chain_affine).
 """
 
 from __future__ import annotations
@@ -52,6 +54,23 @@ _LOWEST = -np.inf
 # chain (the one-family engine), or a tied traceback step went unresolved
 _NOT_CHAINS = "not chain x chain"
 _UNRESOLVED = "unresolved tie"
+
+
+def _unmasked(sets, i1s, i2s, masked):
+    """Indices of the anchors (sets[k], i1s[k], i2s[k]) that are not in
+    the mask, a set of (set, walk1 index, walk2 index). Both sides are
+    packed as the tree engine packs them (chain_parity.cpp MatchBankP::
+    mask_key: set << 40 | walk1 << 20 | walk2, uint64), so that an anchor
+    is masked here exactly where it is masked there."""
+    import itertools
+
+    def keys(s, i, j):
+        u = np.uint64
+        return (s.astype(u) << u(40)) | (i.astype(u) << u(20)) | j.astype(u)
+
+    rows = np.fromiter(itertools.chain.from_iterable(masked), dtype=_I64,
+                       count=3 * len(masked)).reshape(-1, 3)
+    return np.flatnonzero(~np.isin(keys(sets, i1s, i2s), keys(*rows.T)))
 
 
 @dataclass
@@ -877,31 +896,33 @@ class Anchorer:
                       num_sets, num_anchors, max_match_size, weights):
         """SparseAffine chaining in chain_affine_parity's output format.
 
-        Unmasked inputs take an offline CDQ value engine, bit-identical to
-        the tree sweep (validated against it: 0/145331 dp mismatches on the
-        benchmark pair input), with traceback ties resolved exactly by the
-        host replica of the trees' walk (chain_ties.py): chain x chain
-        inputs the one-family engine, every other input the graph x graph
-        engine over all (path1, path2) families. The tree engine
-        (chain_affine_parity) takes masked (cyclization) chains, inputs
-        outside the engines' reach, a chaining whose tied step the replica
-        cannot resolve, and everything with CENTROLIGN_TPU_CHAIN_CDQ=0.
-        Records the anchors and seconds under metrics tags chain.cdq,
-        chain.tree and chain.tree_fallback, and a masked chaining's under
-        chain.masked."""
+        Offline CDQ value engines, bit-identical to the tree sweep
+        (validated against it: 0/145331 dp mismatches on the benchmark pair
+        input), with traceback ties resolved exactly by the host replica of
+        the trees' walk (chain_ties.py): chain x chain inputs, masked (-c)
+        or not, the one-family engine, every other unmasked input the
+        graph x graph engine over all (path1, path2) families. The tree
+        engine (chain_affine_parity) takes masked inputs that are not
+        chain x chain, a chaining whose tied step the replica cannot
+        resolve, and everything with CENTROLIGN_TPU_CHAIN_CDQ=0. Records
+        an unmasked chaining's anchors and seconds under metrics tags
+        chain.cdq, chain.tree and chain.tree_fallback, and a masked
+        chaining's under chain.masked and, by the engine that answered,
+        chain.masked_cdq or chain.masked_tree."""
         import os
         from .native import chain_affine_parity
 
         t0 = metrics.timer()
         res, tag = None, "chain.tree"
-        if not masked and os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ",
-                                         "1") == "1":
+        if os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ", "1") == "1":
             res = self._chain_affine_cdq(
                 matches, graph1, graph2, xmerge1, xmerge2,
                 sources1, sources2, sinks1, sinks2, scale,
-                num_sets, num_anchors, max_match_size, weights)
+                num_sets, num_anchors, max_match_size, weights, masked)
             if res is _NOT_CHAINS:
-                res = self._chain_affine_graph_cdq(
+                # the graph engine takes no mask: a masked input out of the
+                # one-family engine's reach keeps the tree engine
+                res = None if masked else self._chain_affine_graph_cdq(
                     matches, graph1, graph2, xmerge1, xmerge2,
                     sources1, sources2, sinks1, sinks2, scale,
                     num_sets, num_anchors, max_match_size, weights)
@@ -913,7 +934,8 @@ class Anchorer:
                     res = self._validate_cdq(
                         res, matches, graph1, graph2, xmerge1, xmerge2,
                         sources1, sources2, sinks1, sinks2, scale,
-                        num_sets, num_anchors, max_match_size, weights)
+                        num_sets, num_anchors, max_match_size, weights,
+                        masked)
         if res is None:
             res = chain_affine_parity(
                 graph1, graph2, matches, num_sets, weights, xmerge1,
@@ -922,8 +944,13 @@ class Anchorer:
                 num_anchors, max_match_size, masked)
         cells = sum(len(m.walks1) * len(m.walks2)
                     for m in matches[:num_sets])
-        metrics.record("chain.masked" if masked else tag, cells,
-                       metrics.timer() - t0)
+        seconds = metrics.timer() - t0
+        if masked:
+            metrics.record("chain.masked", cells, seconds)
+            metrics.record("chain.masked_cdq" if tag == "chain.cdq"
+                           else "chain.masked_tree", cells, seconds)
+        else:
+            metrics.record(tag, cells, seconds)
         return res
 
     # ------------------------------------------------------------------
@@ -933,7 +960,8 @@ class Anchorer:
 
     def _validate_cdq(self, res, matches, graph1, graph2, xmerge1, xmerge2,
                       sources1, sources2, sinks1, sinks2, scale,
-                      num_sets, num_anchors, max_match_size, weights):
+                      num_sets, num_anchors, max_match_size, weights,
+                      masked=None):
         import os
         import sys
         import tempfile
@@ -953,13 +981,13 @@ class Anchorer:
                 graph1, graph2, matches, num_sets, weights, xmerge1,
                 xmerge2, self.gap_open, self.gap_extend, scale,
                 sources1, sources2, sinks1, sinks2,
-                num_anchors, max_match_size)
+                num_anchors, max_match_size, masked)
         finally:
             if prev_dump is None:
                 del os.environ["CHAIN_DP_DUMP"]
             else:
                 os.environ["CHAIN_DP_DUMP"] = prev_dump
-        (sid, i1s, i2s, ps1, pe1, ps2, pe2, dp, bp, tie, init) = \
+        (sid, i1s, i2s, ps1, pe1, ps2, pe2, dp, bp, tie, init, keep) = \
             self._cdq_debug
         self._cdq_debug = None  # consume: never validate a stale payload
         with open(dump, "rb") as f:
@@ -968,6 +996,15 @@ class Anchorer:
             # ID_MAX (u64 max) wraps to -1, matching the CDQ none sentinel
             bp_t = np.fromfile(f, dtype=np.uint64, count=n).astype(np.int64)
         os.unlink(dump)
+        # the tree dumps every MatchBank id, the CDQ engine's ids are the
+        # unmasked anchors' ranks: bring the dump to those ranks
+        rank = np.arange(n, dtype=_I64)
+        if keep is not None:
+            rank = np.full(n, -1, dtype=_I64)
+            rank[keep] = np.arange(len(keep))
+            dp_t, bp_t = dp_t[keep], bp_t[keep]
+            bp_t = np.where(bp_t >= 0, rank[bp_t], -1)
+            n = len(keep)
         assert n == len(dp), f"anchor count mismatch {n} vs {len(dp)}"
         dmis = np.flatnonzero(dp_t != dp)
         print(f"[cdq-validate] n={n} dp mismatches={len(dmis)}",
@@ -1002,8 +1039,8 @@ class Anchorer:
                 base[s] = acc
                 n2s[s] = n2
                 acc += n1 * n2
-            path_ids = [base[int(r[0])] + int(r[1]) * n2s[int(r[0])]
-                        + int(r[2]) for r in arows_t]
+            path_ids = [int(rank[base[int(r[0])] + int(r[1]) * n2s[int(r[0])]
+                                 + int(r[2])]) for r in arows_t]
             import collections
             dist_all = collections.Counter(struct[tie != 0].tolist())
             on_path = [a for a in path_ids if tie[a]]
@@ -1027,7 +1064,8 @@ class Anchorer:
 
     def _chain_affine_cdq(self, matches, graph1, graph2, xmerge1, xmerge2,
                           sources1, sources2, sinks1, sinks2, scale,
-                          num_sets, num_anchors, max_match_size, weights):
+                          num_sets, num_anchors, max_match_size, weights,
+                          masked=None):
         """Reference-exact SparseAffine chaining on chain x chain inputs
         through the O(n log^2 n) CDQ value engine plus host-side traceback.
         DP values are bit-identical to the tree sweep (same f32/f64 rounding
@@ -1035,6 +1073,19 @@ class Anchorer:
         traceback path are resolved in-process by chain_ties.AffineTieResolver
         (a rank-arithmetic replica of the tree visit order), and only an
         unresolved walk (resolve() -> None) falls back to the tree engine.
+
+        A masked (set, walk1, walk2) is left out of the input. The tree
+        sweep skips it in each of its enumerations (MatchBankP::for_each,
+        for_starts_on, for_ends_on): it never enters a tree's static
+        layout, never gets a dp value, and is never a predecessor nor a
+        candidate for opt. Its trees are thus the unmasked sweep's over the
+        anchors that remain, keyed by the same MatchBank ids, whose order
+        the remaining anchors keep here. So everything below runs on the
+        filtered arrays as it does unmasked: the sources' lead term, the
+        value pass, the sinks' final term and opt's first-in-order pick,
+        the traceback, the tie resolver (its trees are the masked sweep's)
+        and the rows' set and walk indices.
+
         Returns (arows, fvals) in chain_affine_parity's output format,
         _NOT_CHAINS when the input is not chain x chain, or _UNRESOLVED."""
         import os
@@ -1055,8 +1106,13 @@ class Anchorer:
         idx1 = np.asarray(xmerge1.index_on[0], dtype=_I64)
         idx2 = np.asarray(xmerge2.index_on[0], dtype=_I64)
 
-        sid, i1s, i2s, as1, ae1, as2, ae2 = self._flat_anchors(matches,
-                                                               num_sets)
+        flat = self._flat_anchors(matches, num_sets)
+        keep = None
+        if masked:
+            keep = _unmasked(*flat[:3], masked)
+            flat = tuple(a[keep] for a in flat)
+        sid, i1s, i2s, as1, ae1, as2, ae2 = flat
+        del flat
         if len(sid) == 0:
             return (np.empty((0, 5), dtype=_I64), np.empty((0, 3)))
         ps1, pe1, ps2, pe2 = idx1[as1], idx1[ae1], idx2[as2], idx2[ae2]
@@ -1142,7 +1198,7 @@ class Anchorer:
             ps1, pe1, ps2, pe2, aw, init, go, ge, scale)
         if os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE"):
             self._cdq_debug = (sid, i1s, i2s, ps1, pe1, ps2, pe2,
-                               dp, bp, tie, init)
+                               dp, bp, tie, init, keep)
             self._cdq_struct = _struct
 
         # final indel term + opt selection (affine_impl traceback prologue)
@@ -1265,7 +1321,7 @@ class Anchorer:
             sid, i1s, i2s, s1, e1, s2, e2 = self._flat_anchors(
                 matches, num_sets)
             self._cdq_debug = (sid, i1s, i2s, s1, e1, s2, e2, dp, bp, tie,
-                               init)
+                               init, None)
             self._cdq_struct = struct
 
         rev = []

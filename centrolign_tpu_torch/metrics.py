@@ -12,8 +12,9 @@ Aligner tags (matching the reference's): 'po' full-matrix PO-POA (host),
 'w' pruned WFA, 'ad1'/'ad2' deletion WFA, 'pd1'/'pd2' pure deletion, 'u'
 unalignable (greedy partial). Other tags: each SparseAffine chaining's
 anchors and seconds by engine ('chain.cdq', 'chain.tree',
-'chain.tree_fallback'; a masked -c chaining 'chain.masked'), and -c's
-'bond.found', one record a bond, its length in bp as cells.
+'chain.tree_fallback'; a masked -c chaining 'chain.masked' and, by the
+engine that answered it, 'chain.masked_cdq' or 'chain.masked_tree'), and
+-c's 'bond.found', one record a bond, its length in bp as cells.
 
 Spans sit at layer boundaries, never per gap (the per-gap facts are the
 counters'), and are always on: `with span(name):` records the name, the

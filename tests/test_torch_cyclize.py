@@ -48,19 +48,21 @@ CPU_TIER = {"CENTROLIGN_TORCH_DEVICE": "cpu",
             "CENTROLIGN_TORCH_DEVICE_MIN_CELLS": "4000"}
 
 # runs the port's cli.main with chip_smoke's recording hooks: the chain
-# jobs of each internal stitch and of the rest, and the modules loaded, go
-# to stderr's last line
+# jobs of each internal stitch and of the rest, the anchors of each
+# chaining counter, and the modules loaded, go to stderr's last line
 _PORT = r"""
 import contextlib, io, json, sys
 sys.path[:0] = [{repo!r}]
 import chip_smoke
-from centrolign_tpu_torch import cli
+from centrolign_tpu_torch import cli, metrics
 out = io.StringIO()
 with chip_smoke.recording() as (chain, _, stitches):
     with contextlib.redirect_stdout(out):
         rc = cli.main({argv!r})
 sys.stdout.write(out.getvalue())
 print(json.dumps({{"rc": rc, "jobs": chip_smoke.cyclize_jobs(chain, stitches),
+                  "chain": {{t: c[1] for t, c in metrics.counters.items()
+                            if t.startswith("chain.")}},
                   "foreign": chip_smoke.foreign_modules()}}),
       file=sys.stderr)
 sys.exit(rc)
@@ -309,7 +311,8 @@ def test_cyclize_matches_jax_cli_with_device_tier_on_cpu(tmp_path):
     (cp_info.txt without its directory); the port's internal stitches
     dispatched chain jobs to its device tier; its stage split finds each
     bonding round with the count the log gives, the cyclizing and the
-    polish."""
+    polish; every masked chaining of its bonding rounds took the CDQ
+    engine."""
     fasta = _tandem_fasta(tmp_path / "in.fa", 1500, seed=5)
     jax_cfg, jax_out = _config(tmp_path, "jax", fasta, 1200)
     port_cfg, port_out = _config(tmp_path, "port", fasta, 1200)
@@ -328,6 +331,9 @@ def test_cyclize_matches_jax_cli_with_device_tier_on_cpu(tmp_path):
     bonding = stats["jobs"]["bonding"]
     assert bonding and sum(len(d) for bond in bonding for d in bond) > 0
     assert stats["foreign"] == []
+    assert stats["chain"]["chain.masked_cdq"] == stats["chain"][
+        "chain.masked"] > 0
+    assert "chain.masked_tree" not in stats["chain"]
     split = chip_smoke.stage_split(r.stderr)
     assert sum(rnd["found"] for rnd in split["bonding"]) == len(bonding)
     assert sorted(bond_rounds(split)) == ["seq1", "seq2"]

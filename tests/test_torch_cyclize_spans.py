@@ -8,7 +8,8 @@ three 1.5 kbp copies, tests/test_torch_cyclize.py's config with the polish
 off), run once in this process at -v 3. Each round's bond.chain holds its
 bond.anchor and bond.identify, cyclize holds cyclize.fuse and
 cyclize.simplify, the self times still sum to the job, chain.masked counts
-every round's masked chaining and bond.found every bond the log reports.
+every round's masked chaining, chain.masked_cdq or chain.masked_tree each
+by the engine that answered it, and bond.found every bond the log reports.
 A run without -c (test_torch_spans.py's pair and MSA) records none of
 them. The C heap's free pages go back to the system at each round's
 start, before each masked chaining's fill-in and once after bonding.
@@ -23,7 +24,8 @@ from test_torch_spans import _names, _self_ns, jobs, run_job  # noqa: F401
 
 NEW_SPANS = {"bond.anchor", "bond.identify", "cyclize.fuse",
              "cyclize.simplify"}
-NEW_TAGS = {"chain.masked", "bond.found"}
+NEW_TAGS = {"chain.masked", "chain.masked_cdq", "chain.masked_tree",
+            "bond.found"}
 
 
 @pytest.fixture(scope="module")
@@ -109,6 +111,23 @@ def test_chain_masked_counts_each_rounds_masked_chaining(cyc):
                    for tag, open_ in records)
     assert all(set(open_) & set(anchors)
                for tag, open_ in records if tag == "chain.masked")
+
+
+def test_each_masked_chaining_is_counted_under_its_engine(cyc):
+    _, summary, records = cyc
+    tags = [tag for tag, _ in records if tag != "release"]
+    at = [k for k, tag in enumerate(tags) if tag == "chain.masked"]
+    assert at
+    # each masked chaining's record and, right after it, its engine's
+    engines = [tags[k + 1] for k in at]
+    assert set(engines) <= {"chain.masked_cdq", "chain.masked_tree"}
+    assert (tags.count("chain.masked_cdq") + tags.count("chain.masked_tree")
+            == len(at))
+    cells = sum(summary[t]["cells"] for t in set(engines))
+    assert cells == summary["chain.masked"]["cells"]
+    # every masked chaining here is chain x chain with its ties resolved
+    assert summary["chain.masked_cdq"]["count"] == len(at)
+    assert "chain.masked_tree" not in summary
 
 
 def test_bond_found_counts_the_bonds_the_log_reports(cyc):
