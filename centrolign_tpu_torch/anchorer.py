@@ -18,13 +18,19 @@ Semantics follow the reference Anchorer (reference anchorer.hpp:127-2548):
 - the match-pair budget keeps whole match sets in decreasing full-length
   weight order until max_num_match_pairs is reached (anchorer.hpp:1108-1173)
 
-This module implements the chain DP dense-vectorized over anchors x anchors
-(the semantics twin of the reference's exhaustive_chain_dp, anchorer.hpp:1342;
-the reference's sparse algorithms compute the same optimum). The dense
-formulation is also the shape that maps onto the TPU: reachability and gap
-matrices are plain gathers + elementwise max-plus sweeps.
+One engine per algorithm and input. Exhaustive (-g 0) scores no gaps: a
+dense DP over anchors x anchors here (the semantics twin of the
+reference's exhaustive_chain_dp, anchorer.hpp:1342) below 256 anchors,
+the native free-gap sweeps above (chain_dp_seq on chain x chain,
+chain_dp_general on other path-covered graphs). Sparse: the native
+chain_sparse_parity. SparseAffine: the offline CDQ engines, and the tree
+engine for what they refuse or leave unresolved (_chain_affine).
 
-Copy of centrolign_tpu/anchorer.py. Its two opt-in device branches, the
+Follows the semantics of centrolign_tpu/anchorer.py, without the parts of
+it that no input reaches in the port: the affine half of the Exhaustive
+path, its post-switch distance tables and the switch that turns the CDQ
+engines off (here the engine is chosen from the input alone). Its two
+opt-in device branches, the
 SparseAffine CDQ value pass (CENTROLIGN_TPU_DEVICE_CDQ=1, ops/chain_cdq.py)
 and free-gap sparse chaining on chain graphs (CENTROLIGN_TPU_DEVICE_CHAIN=1,
 ops/chain_scan.py), run on the anchorer's `device` in place of the JAX
@@ -46,7 +52,7 @@ import numpy as np
 
 from . import metrics
 from .score_function import ScoreFunction
-from .path_merge import PathMerge, PostSwitchDistances
+from .path_merge import PathMerge
 
 _I64 = np.int64
 _LOWEST = -np.inf
@@ -73,6 +79,16 @@ def _unmasked(sets, i1s, i2s, masked):
     return np.flatnonzero(~np.isin(keys(sets, i1s, i2s), keys(*rows.T)))
 
 
+def _traceback(best, backptr):
+    """The anchor ids of the chain that ends at `best` (-1: the empty
+    chain), first to last, along the backpointers."""
+    ids = []
+    while best != -1:
+        ids.append(best)
+        best = int(backptr[best])
+    return ids[::-1]
+
+
 @dataclass
 class Anchor:
     """One chained anchor (reference anchor_t, anchorer.hpp:36-57)."""
@@ -96,30 +112,6 @@ class ChainAlgorithm:
     Exhaustive = 0
     Sparse = 1
     SparseAffine = 2
-
-
-class _PSDView:
-    """PostSwitchDistances-compatible view over a native (C, V) D array."""
-
-    HUGE = np.int64(2**62)
-
-    def __init__(self, distances):
-        self.distances = distances
-
-    def distance(self, v, p):
-        d = self.distances[p, v]
-        return int(d) if d != 0 else int(self.HUGE)
-
-
-def _native_psd(graph, xmerge):
-    try:
-        from .native import psd_build
-    except Exception:
-        return PostSwitchDistances(graph, xmerge)
-    p_ptr, p_ind = graph.prev_csr()
-    D = psd_build(graph.topological_order(), p_ptr, p_ind,
-                  xmerge.index_on, xmerge.table)
-    return _PSDView(D)
 
 
 @dataclass
@@ -267,31 +259,24 @@ class Anchorer:
                         xmerge1, xmerge2):
         """Sum of min source->sink distances of the between-anchor
         extractions (the length denominator of estimate_score_scale)."""
-        import os
-        if (tableau1 is not None
-                and os.environ.get("CENTROLIGN_TPU_PY_FILLIN") != "1"):
-            try:
-                from .native import chain_fill_length
-            except Exception:
-                chain_fill_length = None
-            if chain_fill_length is not None:
-                A = len(anchors)
-                eps = np.empty((A + 1, 4), dtype=_I64)
-                if A == 0:
-                    eps[0] = (tableau1.src_id, tableau1.snk_id,
-                              tableau2.src_id, tableau2.snk_id)
-                else:
-                    eps[0] = (tableau1.src_id, anchors[0].walk1[0],
-                              tableau2.src_id, anchors[0].walk2[0])
-                    for i in range(1, A):
-                        eps[i] = (anchors[i - 1].walk1[-1],
-                                  anchors[i].walk1[0],
-                                  anchors[i - 1].walk2[-1],
-                                  anchors[i].walk2[0])
-                    eps[A] = (anchors[-1].walk1[-1], tableau1.snk_id,
-                              anchors[-1].walk2[-1], tableau2.snk_id)
-                return chain_fill_length(graph1, graph2, xmerge1, xmerge2,
-                                         eps)
+        if tableau1 is not None:
+            from .native import chain_fill_length
+            A = len(anchors)
+            eps = np.empty((A + 1, 4), dtype=_I64)
+            if A == 0:
+                eps[0] = (tableau1.src_id, tableau1.snk_id,
+                          tableau2.src_id, tableau2.snk_id)
+            else:
+                eps[0] = (tableau1.src_id, anchors[0].walk1[0],
+                          tableau2.src_id, anchors[0].walk2[0])
+                for i in range(1, A):
+                    eps[i] = (anchors[i - 1].walk1[-1],
+                              anchors[i].walk1[0],
+                              anchors[i - 1].walk2[-1],
+                              anchors[i].walk2[0])
+                eps[A] = (anchors[-1].walk1[-1], tableau1.snk_id,
+                          anchors[-1].walk2[-1], tableau2.snk_id)
+            return chain_fill_length(graph1, graph2, xmerge1, xmerge2, eps)
         from .extractor import extract_graphs_between, source_sink_minmax
         fill_in = extract_graphs_between(
             anchors, graph1, graph2, tableau1, tableau2, xmerge1, xmerge2)
@@ -349,36 +334,31 @@ class Anchorer:
             return
         import os
         if (tableau1 is not None
-                and os.environ.get("CENTROLIGN_TPU_PY_FILLIN") != "1"
                 and algorithm in (ChainAlgorithm.Sparse,
                                   ChainAlgorithm.SparseAffine)):
-            try:
-                from .native import anchor_fill_in
-            except Exception:
-                anchor_fill_in = None
-            if anchor_fill_in is not None:
-                n_threads = int(os.environ.get("CENTROLIGN_TPU_THREADS",
-                                               str(os.cpu_count() or 1)))
-                rows, fvals = anchor_fill_in(
-                    graph1, graph2, tableau1, tableau2, xmerge1, xmerge2,
-                    matches, anchors, algorithm, scale,
-                    self.gap_open, self.gap_extend, self.score_function,
-                    self.max_num_match_pairs, masked_matches, n_threads)
-                merged = []
-                for k in range(len(rows)):
-                    si, i1, i2, gb, ga = (int(x) for x in rows[k])
-                    m = matches[si]
-                    merged.append(Anchor(
-                        walk1=np.asarray(m.walks1[i1]),
-                        walk2=np.asarray(m.walks2[i2]),
-                        count1=m.count1, count2=m.count2,
-                        full_length=m.full_length, score=float(fvals[k, 0]),
-                        gap_before=gb, gap_after=ga,
-                        gap_score_before=float(fvals[k, 1]),
-                        gap_score_after=float(fvals[k, 2]),
-                        match_set=si, idx1=i1, idx2=i2))
-                anchors[:] = merged
-                return
+            from .native import anchor_fill_in
+            n_threads = int(os.environ.get("CENTROLIGN_TPU_THREADS",
+                                           str(os.cpu_count() or 1)))
+            rows, fvals = anchor_fill_in(
+                graph1, graph2, tableau1, tableau2, xmerge1, xmerge2,
+                matches, anchors, algorithm, scale,
+                self.gap_open, self.gap_extend, self.score_function,
+                self.max_num_match_pairs, masked_matches, n_threads)
+            merged = []
+            for k in range(len(rows)):
+                si, i1, i2, gb, ga = (int(x) for x in rows[k])
+                m = matches[si]
+                merged.append(Anchor(
+                    walk1=np.asarray(m.walks1[i1]),
+                    walk2=np.asarray(m.walks2[i2]),
+                    count1=m.count1, count2=m.count2,
+                    full_length=m.full_length, score=float(fvals[k, 0]),
+                    gap_before=gb, gap_after=ga,
+                    gap_score_before=float(fvals[k, 1]),
+                    gap_score_after=float(fvals[k, 2]),
+                    match_set=si, idx1=i1, idx2=i2))
+            anchors[:] = merged
+            return
         from .extractor import extract_graphs_between, project_paths
         from .match_finder import MatchSet
 
@@ -410,7 +390,6 @@ class Anchorer:
         # per-gap chains are independent; the native engines release the GIL
         # (the reference runs these serially, src/execution.cpp — this is
         # the host-parallelism it leaves on the table)
-        import os
         from concurrent.futures import ThreadPoolExecutor
         workers = min(
             int(os.environ.get("CENTROLIGN_TPU_THREADS",
@@ -573,7 +552,8 @@ class Anchorer:
                 matches, graph1, graph2, xmerge1, xmerge2,
                 sources1, sources2, sinks1, sinks2, algorithm, scale,
                 masked_matches, num_sets, num_anchors, max_match_size)
-        score_edges = algorithm == ChainAlgorithm.SparseAffine
+        # below: Exhaustive (-g 0), which costs no gaps: a chain scores the
+        # weights of its anchors, and every reachable edge is free
 
         # flatten anchors
         set_idx, i1s, i2s = [], [], []
@@ -608,26 +588,15 @@ class Anchorer:
         # chain) -> the native O(n log^2 n) sweep DP
         chain_ids = self._chain_native(
             starts1, ends1, starts2, ends2, weights, xmerge1, xmerge2,
-            sources1, sources2, sinks1, sinks2, score_edges, scale)
-        general_native = False
+            sources1, sources2, sinks1, sinks2)
         if chain_ids is None and n >= 256:
             # general path-covered DAGs: native sweep with canonical-chain
             # trees (the reference's sparse DP structure)
             chain_ids = self._chain_native_general(
                 graph1, graph2, starts1, ends1, starts2, ends2, weights,
-                xmerge1, xmerge2, sources1, sources2, sinks1, sinks2,
-                score_edges, scale)
-            general_native = chain_ids is not None
+                xmerge1, xmerge2, sources1, sources2, sinks1, sinks2)
         if chain_ids is not None:
-            return self._assemble_chain(
-                chain_ids, matches, set_idx, i1s, i2s, starts1, starts2,
-                ends1, ends2, xmerge1, xmerge2, score_edges, scale,
-                general=general_native, graph1=graph1, graph2=graph2)
-
-        psd1 = psd2 = None
-        if score_edges:
-            psd1 = _native_psd(graph1, xmerge1)
-            psd2 = _native_psd(graph2, xmerge2)
+            return self._assemble_chain(chain_ids, matches, set_idx, i1s, i2s)
 
         # pre-gather per-anchor-start quantities (the "to" side of edges)
         # table rows for every start node: (n, C)
@@ -638,26 +607,15 @@ class Anchorer:
         head_e2 = xmerge2.path_head[ends2]
         idx_e1 = xmerge1.index_on[np.where(head_e1 == -1, 0, head_e1), ends1]
         idx_e2 = xmerge2.index_on[np.where(head_e2 == -1, 0, head_e2), ends2]
-        if score_edges:
-            psv1 = np.where(psd1.distances == 0, np.int64(2**61),
-                            psd1.distances)[:, starts1].astype(np.float64)  # (C1, n)
-            psv2 = np.where(psd2.distances == 0, np.int64(2**61),
-                            psd2.distances)[:, starts2].astype(np.float64)
-            go = np.array(self.gap_open)[:, None]
-            ge = np.array(self.gap_extend)[:, None]
 
         # initial / final weights
-        init_w = np.zeros(n)
-        fin_w = np.zeros(n)
-        if sources1 is not None:
-            init_w, fin_w = self._boundary_weights(
-                starts1, ends1, starts2, ends2, sources1, sources2,
-                sinks1, sinks2, xmerge1, xmerge2, psd1, psd2, scale,
-                score_edges)
+        init_w, fin_w = self._boundary_weights(
+            starts1, ends1, starts2, ends2, sources1, sources2,
+            sinks1, sinks2, xmerge1, xmerge2)
 
         # DP over anchors in a valid topological order of the anchor DAG
         # (order by topological position of walk1 start; edges always go
-        # strictly forward in that order). Rows of the reachability/edge
+        # strictly forward in that order). Rows of the reachability
         # matrices are computed on the fly: O(n) memory instead of O(n^2).
         topo1 = np.empty(graph1.node_size, dtype=_I64)
         topo1[graph1.topological_order()] = np.arange(graph1.node_size)
@@ -665,13 +623,7 @@ class Anchorer:
 
         dp = init_w.copy()
         backptr = np.full(n, -1, dtype=_I64)
-        min_score = 0.0
-        if sources1 is not None and sinks1 is not None and score_edges:
-            # the score of the empty chain (anchorer.hpp:1466-1481)
-            min_score = self._empty_chain_score(
-                sources1, sources2, sinks1, sinks2, xmerge1, xmerge2,
-                psd1, psd2, scale)
-        best_id, best_score = -1, min_score
+        best_id, best_score = -1, 0.0
         for a in order:
             a = int(a)
             if dp[a] == _LOWEST:
@@ -686,48 +638,11 @@ class Anchorer:
             r2 = pred_s2[:, head_e2[a]]
             reach_row = (r1 != -1) & (idx_e1[a] <= r1) & (r2 != -1) & (idx_e2[a] <= r2)
             succ = np.flatnonzero(reach_row)
-            if len(succ) == 0:
-                continue
-            if score_edges:
-                ew = np.full(len(succ), _LOWEST)
-                for c1 in xmerge1.chains_on(ends1[a]):
-                    d1 = (pred_s1[succ, c1].astype(np.float64)
-                          + psv1[c1, succ] - float(xmerge1.index_on[c1, ends1[a]]))
-                    for c2 in xmerge2.chains_on(ends2[a]):
-                        d2 = (pred_s2[succ, c2].astype(np.float64)
-                              + psv2[c2, succ] - float(xmerge2.index_on[c2, ends2[a]]))
-                        gap = np.abs(d1 - d2)
-                        w = np.where(gap == 0, 0.0,
-                                     (-scale * (go + ge * gap)).max(axis=0))
-                        np.maximum(ew, w, out=ew)
-                cand = dp[a] + ew
-            else:
-                cand = dp[a] + np.zeros(len(succ))
-            upd = cand > dp[succ]
-            dp[succ[upd]] = cand[upd]
+            upd = dp[a] > dp[succ]
+            dp[succ[upd]] = dp[a]
             backptr[succ[upd]] = a
-        chain_ids = []
-        v = best_id
-        while v != -1:
-            chain_ids.append(v)
-            v = int(backptr[v])
-        chain_ids.reverse()
-
-        chain = []
-        for v in chain_ids:
-            m = matches[set_idx[v]]
-            chain.append(Anchor(
-                walk1=np.asarray(m.walks1[i1s[v]]),
-                walk2=np.asarray(m.walks2[i2s[v]]),
-                count1=m.count1, count2=m.count2,
-                full_length=m.full_length, match_set=set_idx[v],
-                idx1=i1s[v], idx2=i2s[v]))
-        for a in chain:
-            a.score = self.anchor_weight(a)
-        if score_edges:
-            self._annotate_gaps(chain, sources1, sources2, sinks1, sinks2,
-                                xmerge1, xmerge2, psd1, psd2, scale)
-        return chain
+        return self._assemble_chain(_traceback(best_id, backptr), matches,
+                                    set_idx, i1s, i2s)
 
     def _chain_sparse_scan_device(self, graph1, graph2, matches, num_sets,
                                   weights, sources1, sources2, sinks1,
@@ -903,39 +818,30 @@ class Anchorer:
         or not, the one-family engine, every other unmasked input the
         graph x graph engine over all (path1, path2) families. The tree
         engine (chain_affine_parity) takes masked inputs that are not
-        chain x chain, a chaining whose tied step the replica cannot
-        resolve, and everything with CENTROLIGN_TPU_CHAIN_CDQ=0. Records
-        an unmasked chaining's anchors and seconds under metrics tags
-        chain.cdq, chain.tree and chain.tree_fallback, and a masked
-        chaining's under chain.masked and, by the engine that answered,
-        chain.masked_cdq or chain.masked_tree."""
-        import os
+        chain x chain and a chaining whose tied step the replica cannot
+        resolve. Records an unmasked chaining's anchors and seconds under
+        metrics tags chain.cdq, chain.tree and chain.tree_fallback, and a
+        masked chaining's under chain.masked and, by the engine that
+        answered, chain.masked_cdq or chain.masked_tree."""
         from .native import chain_affine_parity
 
         t0 = metrics.timer()
-        res, tag = None, "chain.tree"
-        if os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ", "1") == "1":
-            res = self._chain_affine_cdq(
+        tag = "chain.tree"
+        res = self._chain_affine_cdq(
+            matches, graph1, graph2, xmerge1, xmerge2,
+            sources1, sources2, sinks1, sinks2, scale,
+            num_sets, num_anchors, max_match_size, weights, masked)
+        if res is _NOT_CHAINS:
+            # the graph engine takes no mask: a masked input out of the
+            # one-family engine's reach keeps the tree engine
+            res = None if masked else self._chain_affine_graph_cdq(
                 matches, graph1, graph2, xmerge1, xmerge2,
                 sources1, sources2, sinks1, sinks2, scale,
-                num_sets, num_anchors, max_match_size, weights, masked)
-            if res is _NOT_CHAINS:
-                # the graph engine takes no mask: a masked input out of the
-                # one-family engine's reach keeps the tree engine
-                res = None if masked else self._chain_affine_graph_cdq(
-                    matches, graph1, graph2, xmerge1, xmerge2,
-                    sources1, sources2, sinks1, sinks2, scale,
-                    num_sets, num_anchors, max_match_size, weights)
-            if res is _UNRESOLVED:
-                res, tag = None, "chain.tree_fallback"
-            elif res is not None:
-                tag = "chain.cdq"
-                if os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE"):
-                    res = self._validate_cdq(
-                        res, matches, graph1, graph2, xmerge1, xmerge2,
-                        sources1, sources2, sinks1, sinks2, scale,
-                        num_sets, num_anchors, max_match_size, weights,
-                        masked)
+                num_sets, num_anchors, max_match_size, weights)
+        if res is _UNRESOLVED:
+            res, tag = None, "chain.tree_fallback"
+        elif res is not None:
+            tag = "chain.cdq"
         if res is None:
             res = chain_affine_parity(
                 graph1, graph2, matches, num_sets, weights, xmerge1,
@@ -952,112 +858,6 @@ class Anchorer:
         else:
             metrics.record(tag, cells, seconds)
         return res
-
-    # ------------------------------------------------------------------
-    # CDQ validation harness (CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE=1): run the
-    # tree engine alongside, diff per-anchor dp/bp, report, return the tree
-    # result so the pipeline output stays canonical while debugging.
-
-    def _validate_cdq(self, res, matches, graph1, graph2, xmerge1, xmerge2,
-                      sources1, sources2, sinks1, sinks2, scale,
-                      num_sets, num_anchors, max_match_size, weights,
-                      masked=None):
-        import os
-        import sys
-        import tempfile
-        from .native import chain_affine_parity
-
-        if getattr(self, "_cdq_debug", None) is None:
-            # the CDQ engine early-returned (empty/inapplicable input)
-            # before recording a debug payload; nothing to validate
-            return res
-
-        fd, dump = tempfile.mkstemp(suffix=".dpdump")
-        os.close(fd)
-        prev_dump = os.environ.get("CHAIN_DP_DUMP")
-        os.environ["CHAIN_DP_DUMP"] = dump
-        try:
-            arows_t, fvals_t = chain_affine_parity(
-                graph1, graph2, matches, num_sets, weights, xmerge1,
-                xmerge2, self.gap_open, self.gap_extend, scale,
-                sources1, sources2, sinks1, sinks2,
-                num_anchors, max_match_size, masked)
-        finally:
-            if prev_dump is None:
-                del os.environ["CHAIN_DP_DUMP"]
-            else:
-                os.environ["CHAIN_DP_DUMP"] = prev_dump
-        (sid, i1s, i2s, ps1, pe1, ps2, pe2, dp, bp, tie, init, keep) = \
-            self._cdq_debug
-        self._cdq_debug = None  # consume: never validate a stale payload
-        with open(dump, "rb") as f:
-            n = int(np.fromfile(f, dtype=np.int64, count=1)[0])
-            dp_t = np.fromfile(f, dtype=np.float32, count=n)
-            # ID_MAX (u64 max) wraps to -1, matching the CDQ none sentinel
-            bp_t = np.fromfile(f, dtype=np.uint64, count=n).astype(np.int64)
-        os.unlink(dump)
-        # the tree dumps every MatchBank id, the CDQ engine's ids are the
-        # unmasked anchors' ranks: bring the dump to those ranks
-        rank = np.arange(n, dtype=_I64)
-        if keep is not None:
-            rank = np.full(n, -1, dtype=_I64)
-            rank[keep] = np.arange(len(keep))
-            dp_t, bp_t = dp_t[keep], bp_t[keep]
-            bp_t = np.where(bp_t >= 0, rank[bp_t], -1)
-            n = len(keep)
-        assert n == len(dp), f"anchor count mismatch {n} vs {len(dp)}"
-        dmis = np.flatnonzero(dp_t != dp)
-        print(f"[cdq-validate] n={n} dp mismatches={len(dmis)}",
-              file=sys.stderr)
-        for a in dmis[:10]:
-            print(f"  id={a} s1={ps1[a]} e1={pe1[a]} s2={ps2[a]} "
-                  f"e2={pe2[a]} tree={dp_t[a]!r} cdq={dp[a]!r} "
-                  f"bp_tree={bp_t[a]} bp_cdq={bp[a]} tie={tie[a]} "
-                  f"init={init[a]!r}", file=sys.stderr)
-        bmis = np.flatnonzero((bp_t != bp) & (tie == 0) & (dp_t == dp))
-        print(f"[cdq-validate] untied bp mismatches={len(bmis)}, "
-              f"ties flagged={int((tie != 0).sum())}", file=sys.stderr)
-        for a in bmis[:10]:
-            print(f"  id={a} bp_tree={bp_t[a]} bp_cdq={bp[a]} "
-                  f"dp={dp[a]!r}", file=sys.stderr)
-        arows_c, fvals_c = res
-        same = (arows_t.shape == arows_c.shape
-                and bool((arows_t == arows_c).all()))
-        print(f"[cdq-validate] chains identical: {same} "
-              f"(tree {len(arows_t)} rows, cdq {len(arows_c)} rows)",
-              file=sys.stderr)
-        # tie structure distribution: overall and along the tree's path
-        struct = getattr(self, "_cdq_struct", None)
-        if struct is not None:
-            # map tree chain rows (set, i1, i2) -> flat ids
-            n2s = {}
-            base = {}
-            acc = 0
-            for s in range(num_sets):
-                m0 = matches[s]
-                n1, n2 = len(m0.walks1), len(m0.walks2)
-                base[s] = acc
-                n2s[s] = n2
-                acc += n1 * n2
-            path_ids = [int(rank[base[int(r[0])] + int(r[1]) * n2s[int(r[0])]
-                                 + int(r[2])]) for r in arows_t]
-            import collections
-            dist_all = collections.Counter(struct[tie != 0].tolist())
-            on_path = [a for a in path_ids if tie[a]]
-            dist_path = collections.Counter(
-                struct[np.array(on_path, dtype=np.int64)].tolist()
-                if on_path else [])
-            print(f"[cdq-validate] tied struct dist (all): "
-                  f"{dict(dist_all)}", file=sys.stderr)
-            print(f"[cdq-validate] path ties: {len(on_path)}/"
-                  f"{len(path_ids)} struct dist: {dict(dist_path)}",
-                  file=sys.stderr)
-            bppath = [int(bp[a]) for a in on_path]
-            bptree = [int(bp_t[a]) for a in on_path]
-            agree = sum(1 for x, y in zip(bppath, bptree) if x == y)
-            print(f"[cdq-validate] tied path steps where cdq first-found "
-                  f"bp == tree bp: {agree}/{len(on_path)}", file=sys.stderr)
-        return arows_t, fvals_t
 
     # ------------------------------------------------------------------
     # SparseAffine chain x chain via offline CDQ (native/chain_affine_cdq.cpp)
@@ -1088,11 +888,6 @@ class Anchorer:
 
         Returns (arows, fvals) in chain_affine_parity's output format,
         _NOT_CHAINS when the input is not chain x chain, or _UNRESOLVED."""
-        import os
-
-        # any _cdq_debug left over from a prior call (e.g. one that fell
-        # back to the tree engine after the native sweep) is stale now
-        self._cdq_debug = None
 
         def is_chain(g):
             return (g.node_size > 0 and bool((g.out_degrees() <= 1).all())
@@ -1107,7 +902,6 @@ class Anchorer:
         idx2 = np.asarray(xmerge2.index_on[0], dtype=_I64)
 
         flat = self._flat_anchors(matches, num_sets)
-        keep = None
         if masked:
             keep = _unmasked(*flat[:3], masked)
             flat = tuple(a[keep] for a in flat)
@@ -1194,12 +988,8 @@ class Anchorer:
         else:
             init = aw.copy()
 
-        dp, bp, tie, _struct, _stored, _qs = self._cdq_values(
+        dp, bp, tie, struct, stored, _qs = self._cdq_values(
             ps1, pe1, ps2, pe2, aw, init, go, ge, scale)
-        if os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE"):
-            self._cdq_debug = (sid, i1s, i2s, ps1, pe1, ps2, pe2,
-                               dp, bp, tie, init, keep)
-            self._cdq_struct = _struct
 
         # final indel term + opt selection (affine_impl traceback prologue)
         min_score = np.float32(0.0)
@@ -1244,12 +1034,8 @@ class Anchorer:
                     resolver = AffineTieResolver(
                         ps1, pe1, ps2, pe2, dp, ge, scale)
                 here2 = resolver.resolve(
-                    int(here), int(_struct[here]), _stored[here])
+                    int(here), int(struct[here]), stored[here])
                 if here2 is None:
-                    if os.environ.get("CHAIN_PARITY_DEBUG"):
-                        import sys
-                        print("[cdq] unresolved tie -> tree engine fallback",
-                              file=sys.stderr)
                     return _UNRESOLVED
                 rev.append(here)
                 here = int(here2)
@@ -1304,10 +1090,8 @@ class Anchorer:
         family's trees at the query's time. Returns (arows, fvals) in
         chain_affine_parity's output format, None when the input is outside
         the engine's reach, or _UNRESOLVED."""
-        import os
         from .native import AffineGraphCDQ, reference_topological_order
 
-        self._cdq_debug = None
         eng = AffineGraphCDQ(graph1, graph2, matches, num_sets, weights,
                              xmerge1, xmerge2, self.gap_open,
                              self.gap_extend, scale, sources1, sources2,
@@ -1316,13 +1100,7 @@ class Anchorer:
         if got is None:
             return None
         (dp, bp, tie, struct, stored, qtime, qfam, qshift, qoff,
-         init), opt = got
-        if os.environ.get("CENTROLIGN_TPU_CHAIN_CDQ_VALIDATE"):
-            sid, i1s, i2s, s1, e1, s2, e2 = self._flat_anchors(
-                matches, num_sets)
-            self._cdq_debug = (sid, i1s, i2s, s1, e1, s2, e2, dp, bp, tie,
-                               init, None)
-            self._cdq_struct = struct
+         _init), opt = got
 
         rev = []
         here = opt
@@ -1412,10 +1190,11 @@ class Anchorer:
         return idx
 
     def _chain_native(self, starts1, ends1, starts2, ends2, weights,
-                      xmerge1, xmerge2, sources1, sources2, sinks1, sinks2,
-                      score_edges, scale):
+                      xmerge1, xmerge2, sources1, sources2, sinks1, sinks2):
         """Dispatch to the native CDQ sweep when both graphs are single
         chains; returns chain ids or None if not applicable."""
+        from .native import chain_dp_seq
+
         n = len(starts1)
         if n < 256:
             return None  # numpy DP is fine (and avoids native ties headaches)
@@ -1428,63 +1207,17 @@ class Anchorer:
         p2e = self._chain_positions(xmerge2, ends2)
         if any(p is None for p in (p1s, p1e, p2s, p2e)):
             return None
-        try:
-            from .native import chain_dp_seq
-        except Exception:
-            return None
-
-        go = np.array(self.gap_open, dtype=np.float64)
-        ge = np.array(self.gap_extend, dtype=np.float64)
-
-        def gap_cost(gaps):
-            gaps = np.abs(gaps).astype(np.float64)
-            cost = (-scale * (go[:, None] + ge[:, None] * gaps[None, :])).max(axis=0)
-            return np.where(gaps == 0, 0.0, cost)
-
-        if sources1 is not None:
-            src_idx1 = int(xmerge1.index_on[0, sources1[0]])
-            src_idx2 = int(xmerge2.index_on[0, sources2[0]])
-            snk_idx1 = int(xmerge1.index_on[0, sinks1[0]])
-            snk_idx2 = int(xmerge2.index_on[0, sinks2[0]])
-            if score_edges:
-                init_w = gap_cost((p1s - src_idx1) - (p2s - src_idx2))
-                fin_w = gap_cost((snk_idx1 - p1e) - (snk_idx2 - p2e))
-                min_score = float(gap_cost(np.array(
-                    [(snk_idx1 - src_idx1) - (snk_idx2 - src_idx2)]))[0])
-            else:
-                init_w = np.zeros(n)
-                fin_w = np.zeros(n)
-                min_score = 0.0
-        else:
-            init_w = np.zeros(n)
-            fin_w = np.zeros(n)
-            min_score = 0.0
-
-        best, backptr, _dp = chain_dp_seq(
-            p1s, p1e, p2s, p2e, weights, init_w, fin_w, score_edges,
-            go, ge, scale, min_score)
-        chain_ids = []
-        v = best
-        while v != -1:
-            chain_ids.append(v)
-            v = int(backptr[v])
-        chain_ids.reverse()
-        return chain_ids
+        best, backptr, _dp = chain_dp_seq(p1s, p1e, p2s, p2e, weights)
+        return _traceback(best, backptr)
 
     def _chain_native_general(self, graph1, graph2, starts1, ends1,
                               starts2, ends2, weights, xmerge1, xmerge2,
-                              sources1, sources2, sinks1, sinks2,
-                              score_edges, scale):
-        try:
-            from .native import chain_dp_general, psd_build
-        except Exception:
-            return None
-        n = len(starts1)
-        # canonical chain/index per node
+                              sources1, sources2, sinks1, sinks2):
+        from .native import chain_dp_general
+
+        # canonical chain per node (graph2: and index on it)
         chain1 = xmerge1.path_head
         chain2 = xmerge2.path_head
-        idx1 = xmerge1.index_on[np.where(chain1 == -1, 0, chain1),
-                                np.arange(graph1.node_size)]
         idx2 = xmerge2.index_on[np.where(chain2 == -1, 0, chain2),
                                 np.arange(graph2.node_size)]
         topo1 = graph1.topological_order()
@@ -1501,133 +1234,40 @@ class Anchorer:
         chain1_nodes = np.concatenate(nodes) if nodes else np.empty(0, dtype=_I64)
         chain1_offsets = np.array(offs[:-1], dtype=_I64)
 
-        D1 = D2 = None
-        psdv1 = psdv2 = None
-        if score_edges:
-            p_ptr1, p_ind1 = graph1.prev_csr()
-            p_ptr2, p_ind2 = graph2.prev_csr()
-            D1 = psd_build(topo1, p_ptr1, p_ind1, xmerge1.index_on, xmerge1.table)
-            D2 = psd_build(graph2.topological_order(), p_ptr2, p_ind2,
-                           xmerge2.index_on, xmerge2.table)
-            psdv1 = np.where(D1 == 0, np.int64(2**61), D1)
-            psdv2 = np.where(D2 == 0, np.int64(2**61), D2)
-
-        go = np.array(self.gap_open, dtype=np.float64)
-        ge = np.array(self.gap_extend, dtype=np.float64)
-
-        init_w, fin_w, min_score = self._boundary_weights_vec(
+        init_w, fin_w = self._boundary_weights(
             starts1, ends1, starts2, ends2, sources1, sources2, sinks1,
-            sinks2, xmerge1, xmerge2, psdv1, psdv2, score_edges, scale)
+            sinks2, xmerge1, xmerge2)
 
         best, backptr, _dp = chain_dp_general(
             starts1, ends1, starts2, ends2, weights, init_w, fin_w,
-            topo1, chain1, idx1, xmerge1.table, D1, chain1_nodes,
-            chain1_offsets, chain2, idx2, xmerge2.table, D2,
-            score_edges, go, ge, scale, min_score)
-        chain_ids = []
-        v = best
-        while v != -1:
-            chain_ids.append(v)
-            v = int(backptr[v])
-        chain_ids.reverse()
-        return chain_ids
+            topo1, chain1, xmerge1.table, chain1_nodes,
+            chain1_offsets, chain2, idx2, xmerge2.table)
+        return _traceback(best, backptr)
 
-    def _boundary_weights_vec(self, starts1, ends1, starts2, ends2,
-                              sources1, sources2, sinks1, sinks2,
-                              xmerge1, xmerge2, psdv1, psdv2,
-                              score_edges, scale):
-        """Vectorized source/sink boundary weights + empty-chain min score
-        (reference anchorer.hpp: initial/final weights + empty chain)."""
+    def _boundary_weights(self, starts1, ends1, starts2, ends2,
+                          sources1, sources2, sinks1, sinks2,
+                          xmerge1, xmerge2):
+        """Free-gap source/sink boundary weights per anchor: 0 where a
+        source pair reaches its starts (its ends reach a sink pair),
+        -inf elsewhere; 0 throughout without global anchoring."""
         n = len(starts1)
         if sources1 is None:
-            return np.zeros(n), np.zeros(n), 0.0
-        go = np.array(self.gap_open)[:, None]
-        ge = np.array(self.gap_extend)[:, None]
-
-        def gap_w(gaps):
-            gaps = np.abs(gaps).astype(np.float64)
-            w = (-scale * (go + ge * gaps[None, :])).max(axis=0)
-            return np.where(gaps == 0, 0.0, w)
-
+            return np.zeros(n), np.zeros(n)
         init_w = np.full(n, _LOWEST)
         fin_w = np.full(n, _LOWEST)
         for s1 in sources1:
             r1 = xmerge1.reachable_matrix(np.array([s1]), starts1)[0] | (starts1 == s1)
             for s2 in sources2:
                 r2 = xmerge2.reachable_matrix(np.array([s2]), starts2)[0] | (starts2 == s2)
-                ok = r1 & r2
-                if not ok.any():
-                    continue
-                if not score_edges:
-                    init_w[ok] = np.maximum(init_w[ok], 0.0)
-                    continue
-                best = np.full(int(ok.sum()), _LOWEST)
-                sel = np.flatnonzero(ok)
-                for c1 in xmerge1.chains_on(s1):
-                    d1 = (xmerge1.table[starts1[sel], c1]
-                          + psdv1[c1, starts1[sel]]
-                          - int(xmerge1.index_on[c1, s1])).astype(np.float64)
-                    for c2 in xmerge2.chains_on(s2):
-                        d2 = (xmerge2.table[starts2[sel], c2]
-                              + psdv2[c2, starts2[sel]]
-                              - int(xmerge2.index_on[c2, s2])).astype(np.float64)
-                        np.maximum(best, gap_w(d1 - d2), out=best)
-                init_w[sel] = np.maximum(init_w[sel], best)
+                init_w[r1 & r2] = 0.0
         for k1 in sinks1:
             r1 = xmerge1.reachable_matrix(ends1, np.array([k1]))[:, 0] | (ends1 == k1)
             for k2 in sinks2:
                 r2 = xmerge2.reachable_matrix(ends2, np.array([k2]))[:, 0] | (ends2 == k2)
-                ok = r1 & r2
-                if not ok.any():
-                    continue
-                if not score_edges:
-                    fin_w[ok] = np.maximum(fin_w[ok], 0.0)
-                    continue
-                sel = np.flatnonzero(ok)
-                best = np.full(len(sel), _LOWEST)
-                # chains vary per end node: loop all chains with masks
-                on1 = xmerge1.index_on[:, ends1[sel]] != -1  # (C1, m)
-                on2 = xmerge2.index_on[:, ends2[sel]] != -1
-                for c1 in range(xmerge1.num_chains):
-                    if not on1[c1].any():
-                        continue
-                    d1 = (int(xmerge1.table[k1, c1]) + int(psdv1[c1, k1])
-                          - xmerge1.index_on[c1, ends1[sel]]).astype(np.float64)
-                    for c2 in range(xmerge2.num_chains):
-                        both = on1[c1] & on2[c2]
-                        if not both.any():
-                            continue
-                        d2 = (int(xmerge2.table[k2, c2]) + int(psdv2[c2, k2])
-                              - xmerge2.index_on[c2, ends2[sel]]).astype(np.float64)
-                        w = gap_w(d1 - d2)
-                        np.maximum(best, np.where(both, w, _LOWEST), out=best)
-                fin_w[sel] = np.maximum(fin_w[sel], best)
-        min_score = 0.0
-        if score_edges:
-            best = _LOWEST
-            for s1 in sources1:
-                for s2 in sources2:
-                    for k1 in sinks1:
-                        for k2 in sinks2:
-                            for c1 in xmerge1.chains_on(s1):
-                                d1 = (int(xmerge1.table[k1, c1])
-                                      + int(psdv1[c1, k1])
-                                      - int(xmerge1.index_on[c1, s1]))
-                                for c2 in xmerge2.chains_on(s2):
-                                    d2 = (int(xmerge2.table[k2, c2])
-                                          + int(psdv2[c2, k2])
-                                          - int(xmerge2.index_on[c2, s2]))
-                                    g = abs(d1 - d2)
-                                    v = 0.0 if g == 0 else float(
-                                        (-scale * (go + ge * g)).max())
-                                    best = max(best, v)
-            min_score = best
-        return init_w, fin_w, min_score
+                fin_w[r1 & r2] = 0.0
+        return init_w, fin_w
 
-    def _assemble_chain(self, chain_ids, matches, set_idx, i1s, i2s,
-                        starts1, starts2, ends1, ends2, xmerge1, xmerge2,
-                        score_edges, scale, general=False,
-                        graph1=None, graph2=None):
+    def _assemble_chain(self, chain_ids, matches, set_idx, i1s, i2s):
         chain = []
         for v in chain_ids:
             m = matches[set_idx[v]]
@@ -1639,135 +1279,4 @@ class Anchorer:
                 idx1=i1s[v], idx2=i2s[v]))
         for a in chain:
             a.score = self.anchor_weight(a)
-        if score_edges and chain:
-            go = np.array(self.gap_open)
-            ge = np.array(self.gap_extend)
-            psd1 = psd2 = None
-            if general:
-                psd1 = _native_psd(graph1, xmerge1)
-                psd2 = _native_psd(graph2, xmerge2)
-            for i in range(len(chain) - 1):
-                a, b = chain[i], chain[i + 1]
-                if general:
-                    gap = self._gap_measure(
-                        a.walk1[-1], b.walk1[0], a.walk2[-1], b.walk2[0],
-                        xmerge1, xmerge2, psd1, psd2)
-                    gap = int(gap) if gap is not None else 0
-                else:
-                    d1 = (int(xmerge1.index_on[0, b.walk1[0]])
-                          - int(xmerge1.index_on[0, a.walk1[-1]]))
-                    d2 = (int(xmerge2.index_on[0, b.walk2[0]])
-                          - int(xmerge2.index_on[0, a.walk2[-1]]))
-                    gap = d1 - d2
-                w = 0.0 if gap == 0 else float(
-                    (-scale * (go + ge * abs(gap))).max())
-                a.gap_after = gap
-                a.gap_score_after = w
-                b.gap_before = gap
-                b.gap_score_before = w
         return chain
-
-    # ------------------------------------------------------------------
-
-    def _gap_measure(self, from1, to1, from2, to2, xmerge1, xmerge2,
-                     psd1, psd2):
-        """min |dist1 - dist2| (signed value of the best) over chain pairs,
-        mirroring edge_weight's measurement (anchorer.hpp:2551-2581).
-        Scalars."""
-        best_gap = None
-        for c1 in xmerge1.chains_on(from1):
-            d1 = int(xmerge1.table[to1, c1]) - int(xmerge1.index_on[c1, from1])
-            if psd1 is not None:
-                d1 += psd1.distance(to1, c1)
-            for c2 in xmerge2.chains_on(from2):
-                d2 = int(xmerge2.table[to2, c2]) - int(xmerge2.index_on[c2, from2])
-                if psd2 is not None:
-                    d2 += psd2.distance(to2, c2)
-                gap = d1 - d2
-                if best_gap is None or abs(gap) < abs(best_gap):
-                    best_gap = gap
-        return best_gap
-
-    def _edge_weight_scalar(self, from1, to1, from2, to2, xmerge1, xmerge2,
-                            psd1, psd2, scale):
-        best = _LOWEST
-        for c1 in xmerge1.chains_on(from1):
-            d1 = (int(xmerge1.table[to1, c1]) - int(xmerge1.index_on[c1, from1])
-                  + psd1.distance(to1, c1))
-            for c2 in xmerge2.chains_on(from2):
-                d2 = (int(xmerge2.table[to2, c2]) - int(xmerge2.index_on[c2, from2])
-                      + psd2.distance(to2, c2))
-                gap = abs(d1 - d2)
-                if gap == 0:
-                    best = max(best, 0.0)
-                else:
-                    for go, ge in zip(self.gap_open, self.gap_extend):
-                        best = max(best, -scale * (go + ge * gap))
-        return best
-
-    def _boundary_weights(self, starts1, ends1, starts2, ends2,
-                          sources1, sources2, sinks1, sinks2,
-                          xmerge1, xmerge2, psd1, psd2, scale, score_edges):
-        n = len(starts1)
-        init_w = np.full(n, _LOWEST)
-        fin_w = np.full(n, _LOWEST)
-        for s1 in sources1:
-            r1 = xmerge1.reachable_matrix(np.array([s1]), starts1)[0] | (starts1 == s1)
-            for s2 in sources2:
-                r2 = xmerge2.reachable_matrix(np.array([s2]), starts2)[0] | (starts2 == s2)
-                ok = r1 & r2
-                if not ok.any():
-                    continue
-                if score_edges:
-                    for v in np.flatnonzero(ok):
-                        w = self._edge_weight_scalar(
-                            s1, starts1[v], s2, starts2[v],
-                            xmerge1, xmerge2, psd1, psd2, scale)
-                        init_w[v] = max(init_w[v], w)
-                else:
-                    init_w[ok] = np.maximum(init_w[ok], 0.0)
-        for k1 in sinks1:
-            r1 = xmerge1.reachable_matrix(ends1, np.array([k1]))[:, 0] | (ends1 == k1)
-            for k2 in sinks2:
-                r2 = xmerge2.reachable_matrix(ends2, np.array([k2]))[:, 0] | (ends2 == k2)
-                ok = r1 & r2
-                if not ok.any():
-                    continue
-                if score_edges:
-                    for v in np.flatnonzero(ok):
-                        w = self._edge_weight_scalar(
-                            ends1[v], k1, ends2[v], k2,
-                            xmerge1, xmerge2, psd1, psd2, scale)
-                        fin_w[v] = max(fin_w[v], w)
-                else:
-                    fin_w[ok] = np.maximum(fin_w[ok], 0.0)
-        return init_w, fin_w
-
-    def _empty_chain_score(self, sources1, sources2, sinks1, sinks2,
-                           xmerge1, xmerge2, psd1, psd2, scale):
-        best = _LOWEST
-        for s1 in sources1:
-            for s2 in sources2:
-                for k1 in sinks1:
-                    for k2 in sinks2:
-                        best = max(best, self._edge_weight_scalar(
-                            s1, k1, s2, k2, xmerge1, xmerge2, psd1, psd2,
-                            scale))
-        return best
-
-    def _annotate_gaps(self, chain, sources1, sources2, sinks1, sinks2,
-                       xmerge1, xmerge2, psd1, psd2, scale):
-        """Record measured gaps and gap scores between consecutive anchors
-        (reference anchorer.hpp:2430-2470)."""
-        for i in range(len(chain) - 1):
-            a, b = chain[i], chain[i + 1]
-            gap = self._gap_measure(
-                a.walk1[-1], b.walk1[0], a.walk2[-1], b.walk2[0],
-                xmerge1, xmerge2, psd1, psd2)
-            w = self._edge_weight_scalar(
-                a.walk1[-1], b.walk1[0], a.walk2[-1], b.walk2[0],
-                xmerge1, xmerge2, psd1, psd2, scale)
-            a.gap_after = int(gap) if gap is not None else 0
-            a.gap_score_after = w
-            b.gap_before = int(gap) if gap is not None else 0
-            b.gap_score_before = w

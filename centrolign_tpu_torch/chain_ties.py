@@ -339,17 +339,3 @@ class GraphTieResolver:
         the tree engine)."""
         return self._family(int(p1), int(p2)).resolve(
             struct, int(qtime), int(qshift), int(qoff), stored)
-
-
-def resolve_affine_tie(anchor, ps1, pe1, ps2, pe2, dp, init, go, ge, scale,
-                       struct, stored, cache=None):
-    """Compatibility wrapper: build (or reuse via `cache`) an
-    AffineTieResolver and resolve one tied step."""
-    if cache is not None and "resolver" in cache:
-        res = cache["resolver"]
-    else:
-        res = AffineTieResolver(ps1, pe1, ps2, pe2, dp, ge, scale)
-        if cache is not None:
-            cache["resolver"] = res
-    return res.resolve(anchor, struct, stored)
-

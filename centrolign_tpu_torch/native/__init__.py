@@ -168,16 +168,9 @@ def _load_lib() -> ctypes.CDLL:
         ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_double, ctypes.c_double,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
-    lib.psd_build.restype = None
-    lib.psd_build.argtypes = [ctypes.c_int64, ctypes.c_int64] + \
-        [ctypes.c_void_p] * 6
     lib.chain_dp_general.restype = ctypes.c_int64
     lib.chain_dp_general.argtypes = [
         ctypes.c_int64,
@@ -188,13 +181,7 @@ def _load_lib() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_double, ctypes.c_double,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.esa_build.restype = None
@@ -361,9 +348,9 @@ def _ptr_f64(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def chain_dp_seq(s1, e1, s2, e2, w, init_w, fin_w, use_gap: bool,
-                 go, ge, scale: float, min_score: float):
-    """Run the native chaining DP. Returns (best_end_index or -1, backptr,
+def chain_dp_seq(s1, e1, s2, e2, w):
+    """Run the native free-gap chaining DP on chain positions, every anchor
+    free to start and end a chain. Returns (best_end_index or -1, backptr,
     dp_final)."""
     lib = get_lib()
     n = len(s1)
@@ -372,44 +359,23 @@ def chain_dp_seq(s1, e1, s2, e2, w, init_w, fin_w, use_gap: bool,
     s2 = np.ascontiguousarray(s2, dtype=np.int64)
     e2 = np.ascontiguousarray(e2, dtype=np.int64)
     w = np.ascontiguousarray(w, dtype=np.float64)
-    init_w = np.ascontiguousarray(init_w, dtype=np.float64)
-    fin_w = np.ascontiguousarray(fin_w, dtype=np.float64)
-    go = np.ascontiguousarray(go, dtype=np.float64)
-    ge = np.ascontiguousarray(ge, dtype=np.float64)
     backptr = np.empty(n, dtype=np.int64)
     dp = np.empty(n, dtype=np.float64)
     best = lib.chain_dp_seq(
         n, _ptr_i64(s1), _ptr_i64(e1), _ptr_i64(s2), _ptr_i64(e2),
-        _ptr_f64(w), _ptr_f64(init_w), _ptr_f64(fin_w),
-        1 if use_gap else 0, len(go), _ptr_f64(go), _ptr_f64(ge),
-        float(scale), float(min_score), _ptr_i64(backptr), _ptr_f64(dp))
+        _ptr_f64(w), _ptr_i64(backptr), _ptr_f64(dp))
     return int(best), backptr, dp
 
 
-def psd_build(topo_order, prev_indptr, prev_indices, index_on, table):
-    """Post-switch distances (C, V), 0 = none (reference semantics)."""
-    lib = get_lib()
-    C, V = index_on.shape
-    topo_order = np.ascontiguousarray(topo_order, dtype=np.int64)
-    prev_indptr = np.ascontiguousarray(prev_indptr, dtype=np.int64)
-    prev_indices = np.ascontiguousarray(prev_indices, dtype=np.int64)
-    index_on = np.ascontiguousarray(index_on, dtype=np.int64)
-    table = np.ascontiguousarray(table, dtype=np.int64)
-    out = np.zeros((C, V), dtype=np.int64)
-    lib.psd_build(V, C, _ptr_i64(topo_order), _ptr_i64(prev_indptr),
-                  _ptr_i64(prev_indices), _ptr_i64(index_on), _ptr_i64(table),
-                  _ptr_i64(out))
-    return out
-
-
 def chain_dp_general(s1, e1, s2, e2, w, init_w, fin_w,
-                     topo1, chain1, idx1, T1, D1, chain1_nodes, chain1_offsets,
-                     chain2, idx2, T2, D2,
-                     use_gap, go, ge, scale, min_score):
+                     topo1, chain1, T1, chain1_nodes, chain1_offsets,
+                     chain2, idx2, T2):
+    """Run the native free-gap chaining DP on path-covered DAGs. Returns
+    (best_end_index or -1, backptr, dp_final)."""
     lib = get_lib()
     n = len(s1)
     V1, C1 = T1.shape
-    V2, C2 = T2.shape
+    C2 = T2.shape[1]
     arrs = {}
     def i64(x, name):
         arrs[name] = np.ascontiguousarray(x, dtype=np.int64)
@@ -419,20 +385,13 @@ def chain_dp_general(s1, e1, s2, e2, w, init_w, fin_w,
         return _ptr_f64(arrs[name])
     backptr = np.empty(n, dtype=np.int64)
     dp = np.empty(n, dtype=np.float64)
-    if D1 is None:
-        D1 = np.zeros((C1, V1), dtype=np.int64)
-        D2 = np.zeros((C2, V2), dtype=np.int64)
-    go = np.ascontiguousarray(go, dtype=np.float64)
-    ge = np.ascontiguousarray(ge, dtype=np.float64)
     best = lib.chain_dp_general(
         n, i64(s1, "s1"), i64(e1, "e1"), i64(s2, "s2"), i64(e2, "e2"),
         f64(w, "w"), f64(init_w, "iw"), f64(fin_w, "fw"),
-        V1, C1, i64(topo1, "t1o"), i64(chain1, "c1"), i64(idx1, "i1"),
-        i64(T1, "T1"), i64(D1, "D1"),
+        V1, C1, i64(topo1, "t1o"), i64(chain1, "c1"), i64(T1, "T1"),
         i64(chain1_nodes, "cn"), i64(chain1_offsets, "co"),
-        V2, C2, i64(chain2, "c2"), i64(idx2, "i2"), i64(T2, "T2"), i64(D2, "D2"),
-        1 if use_gap else 0, len(go), _ptr_f64(go), _ptr_f64(ge),
-        float(scale), float(min_score), _ptr_i64(backptr), _ptr_f64(dp))
+        C2, i64(chain2, "c2"), i64(idx2, "i2"), i64(T2, "T2"),
+        _ptr_i64(backptr), _ptr_f64(dp))
     return int(best), backptr, dp
 
 

@@ -2053,8 +2053,8 @@ static i64 affine_impl(AffineSweep<IntShiftT, TI>& sw, i64 out_cap,
                 "(%.2fs)\n",
                 (long long)n_ends, t_ends, (long long)n_starts, t_starts);
     lap("main sweep");
-    // debug hook: dump per-anchor dp/bp in MatchBank id order (used by the
-    // CDQ engines' validation mode, anchorer.py::_validate_cdq)
+    // debug hook: dump per-anchor dp/bp in MatchBank id order (the tests
+    // hold the CDQ engines' values against this dump)
     if (const char* dumpp = getenv("CHAIN_DP_DUMP")) {
         FILE* df = fopen(dumpp, "wb");
         if (!df) {

@@ -1,4 +1,4 @@
-"""Reachability oracle via path cover ("XMerge") and post-switch distances.
+"""Reachability oracle via path cover ("XMerge").
 
 Equivalent of the reference's PathMerge (reference path_merge.hpp:20-280):
 per-node, per-chain "last index on the chain that strictly precedes this
@@ -6,10 +6,8 @@ node" table, computed as dense numpy matrices (which is also the layout the
 chaining device kernels consume). A sentinel pseudo-chain (src at 0, snk at
 1) is appended when a tableau is given.
 
-PostSwitchDistances is the D array of Chandra & Jain: min distance walked to
-reach a node after leaving a chain (reference post_switch_distances.hpp:16).
-
-Copy of centrolign_tpu/path_merge.py.
+Follows centrolign_tpu/path_merge.py, without its post-switch distances:
+the port's affine chaining measures gaps in its native engines.
 """
 
 from __future__ import annotations
@@ -130,49 +128,6 @@ class PathMerge:
         idx_from = self.index_on[cf_safe, from_ids]
         last = self.table[np.asarray(to_ids)[None, :], cf_safe[:, None]]
         return ok[:, None] & (last != MISSING) & (idx_from[:, None] <= last)
-
-
-class PostSwitchDistances:
-    """distances[p][v] = min distance walked to reach v after leaving chain p
-    (reference post_switch_distances.hpp; 0 encodes 'none', query returns a
-    huge value for it)."""
-
-    HUGE = np.int64(2**62)
-
-    def __init__(self, graph, xmerge: PathMerge):
-        V = graph.node_size
-        C = xmerge.num_chains
-        self.distances = np.zeros((C, V), dtype=_I64)
-        order = graph.topological_order()
-        prev_ptr, prev_ind = graph.prev_csr()
-        index_on = xmerge.index_on  # (C, V)
-        table = xmerge.table        # (V, C)
-        for v in order:
-            ps = prev_ind[prev_ptr[v]:prev_ptr[v + 1]]
-            if not len(ps):
-                continue
-            pred = table[v]          # (C,)
-            row_v = self.distances[:, v]
-            done = np.zeros(C, dtype=bool)  # chains whose prev-scan broke
-            for u in ps:
-                onp = (index_on[:, u] == pred) & ~done
-                row_v[onp] = 1
-                done |= onp
-                # else-if branch: min-update through a prev with the same
-                # predecessor (the reference's 0-means-unset quirk included:
-                # a 0 distance at the prev contributes dist 1)
-                thru = (table[u] == pred) & ~done
-                cand = self.distances[:, u] + 1  # label_size == 1
-                upd = thru & ((row_v == 0) | (row_v > cand))
-                row_v[upd] = cand[upd]
-
-    def distance(self, v: int, p: int) -> int:
-        d = self.distances[p, v]
-        return int(d) if d != 0 else int(self.HUGE)
-
-    def distance_vec(self, vs: np.ndarray, ps: np.ndarray) -> np.ndarray:
-        d = self.distances[ps, vs]
-        return np.where(d == 0, self.HUGE, d)
 
 
 class ChainMerge:

@@ -3,12 +3,13 @@ engine, on the port alone.
 
 Every chaining that reaches Anchorer._chain_affine_graph_cdq (the inputs
 that are not chain x chain) is redone by the tree engine,
-native.chain_affine_parity, the oracle (what CENTROLIGN_TPU_CHAIN_CDQ=0
-runs), with CHAIN_DP_DUMP set. Tolerance: exact. The dp value of every
-anchor bit-equal to the tree sweep's, its backpointer equal wherever the
-CDQ's winning channel had one achiever, and the chain's rows (match set,
-walk indices, gaps) and scores (anchor weight, gap scores) equal; the same
-again with the sources and sinks left out (local chaining). Inputs:
+native.chain_affine_parity, the oracle (what
+test_torch_chain_masked_cdq.tree_engine_only runs), with CHAIN_DP_DUMP
+set. Tolerance: exact. The dp value of every anchor bit-equal to the tree
+sweep's, its backpointer equal wherever the CDQ's winning channel had one
+achiever, and the chain's rows (match set, walk indices, gaps) and scores
+(anchor weight, gap scores) equal; the same again with the sources and
+sinks left out (local chaining). Inputs:
 five.fasta's root merge, small progressive MSAs of simulated 2 + 2, 3 + 2
 and 3 + 3 cohorts (2-4 chains a side), and exact tandem copies, which put
 tied steps on the traceback path (the tie resolver must engage). An
@@ -27,6 +28,7 @@ import pytest
 from centrolign_tpu_torch import anchorer, chain_ties, cli, metrics, native
 
 from conftest import mutate_sequence, random_sequence
+from test_torch_chain_masked_cdq import tree_engine_only
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIVE = [os.path.join(REPO, "benchdata", "five.fasta"),
@@ -217,10 +219,9 @@ def test_graph_engine_matches_tree_engine(case, five, tmp_path, monkeypatch):
 
 def test_unresolved_tie_falls_back_to_the_tree_engine(tmp_path, monkeypatch):
     argv = _cohorts(tmp_path / "in.fasta", 35, (2, 2), tandem=True)
-    monkeypatch.setenv("CENTROLIGN_TPU_CHAIN_CDQ", "0")
-    want, counters = _run_cli(argv)
+    with tree_engine_only():
+        want, counters = _run_cli(argv)
     assert "chain.cdq" not in counters and counters["chain.tree"][1] > 0
-    monkeypatch.delenv("CENTROLIGN_TPU_CHAIN_CDQ")
     monkeypatch.setattr(chain_ties.GraphTieResolver, "resolve",
                         lambda self, *args: None)
     got, counters = _run_cli(argv)

@@ -4,7 +4,7 @@ the tree engine, on the port alone.
 Anchorer._chain_affine takes a masked chain x chain input to the CDQ
 engine with the masked (set, walk1, walk2) triples left out of its input.
 Every masked chaining here is redone by native.chain_affine_parity with
-the same mask (the tree sweep, the oracle: what CENTROLIGN_TPU_CHAIN_CDQ=0
+the same mask (the tree sweep, the oracle: what tree_engine_only below
 runs), with CHAIN_DP_DUMP set. Tolerance: exact. The chain's rows (match
 set, walk indices, gaps) and scores (anchor weight, gap scores) equal; the
 dp value of every anchor the mask leaves bit-equal to the tree sweep's,
@@ -14,12 +14,12 @@ chain inputs under random masks, with and without the sources and sinks;
 the self-matches of a tandem sequence under Core.generate_diagonal_mask
 and then Core.update_mask, as -c's bonding rounds chain them; exact tandem
 copies, on which the tie resolver engages under the mask; a mask over
-every anchor (the empty chain). A masked input that is not chain x chain,
-a masked chaining whose tied step goes unresolved and every masked
-chaining with CENTROLIGN_TPU_CHAIN_CDQ=0 take the tree engine, and are
-counted under chain.masked_tree.
+every anchor (the empty chain). A masked input that is not chain x chain
+and a masked chaining whose tied step goes unresolved take the tree
+engine, and are counted under chain.masked_tree.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -36,6 +36,21 @@ from centrolign_tpu_torch.utils.encoding import encode_seq
 from conftest import random_sequence
 
 MININF = np.finfo(np.float32).min
+
+
+@contextlib.contextmanager
+def tree_engine_only():
+    """Inside, the port's SparseAffine chainings all take the tree engine
+    (native.chain_affine_parity): both CDQ engines answer as they do for an
+    input out of their reach (the one-family engine: not chain x chain; the
+    graph engine: None), so Anchorer._chain_affine falls through to the
+    tree engine and counts it as for such an input."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(anchorer.Anchorer, "_chain_affine_cdq",
+                   lambda self, *args, **kw: anchorer._NOT_CHAINS)
+        mp.setattr(anchorer.Anchorer, "_chain_affine_graph_cdq",
+                   lambda self, *args, **kw: None)
+        yield
 
 
 def _read_dump(path):
@@ -181,13 +196,10 @@ def _chain(anc, matches, graphs, mask):
             for a in chain]
 
 
-def _tree_chain(anc, matches, graphs, mask, monkeypatch):
-    """The same chaining with CENTROLIGN_TPU_CHAIN_CDQ=0."""
-    monkeypatch.setenv("CENTROLIGN_TPU_CHAIN_CDQ", "0")
-    try:
+def _tree_chain(anc, matches, graphs, mask):
+    """The same chaining on the tree engine."""
+    with tree_engine_only():
         return _chain(anc, _copy(matches), graphs, set(mask))
-    finally:
-        monkeypatch.delenv("CENTROLIGN_TPU_CHAIN_CDQ")
 
 
 def _tags():
@@ -208,8 +220,7 @@ def test_masked_chain_matches_tree_engine(ends, seed, tmp_path,
                      make_base_graph("b", random_sequence(rng, n2)))
     matches = _random_matches(rng, n1, n2, 60)
     mask = _random_mask(rng, matches, 0.3)
-    want = _tree_chain(_anchorer(ends == "global"), matches, graphs, mask,
-                       monkeypatch)
+    want = _tree_chain(_anchorer(ends == "global"), matches, graphs, mask)
     metrics.reset()
     oracle = _Oracle(tmp_path)
     oracle.install(monkeypatch)
@@ -275,9 +286,8 @@ def test_bonding_masks_match_tree_engine(case, tmp_path, monkeypatch):
             seq = f.read().split("\n")[1]
     else:
         seq = _exact_tandem(np.random.default_rng(7400))
-    monkeypatch.setenv("CENTROLIGN_TPU_CHAIN_CDQ", "0")
-    want, _ = _bonding_rounds(seq, 2, monkeypatch)
-    monkeypatch.delenv("CENTROLIGN_TPU_CHAIN_CDQ")
+    with tree_engine_only():
+        want, _ = _bonding_rounds(seq, 2, monkeypatch)
     metrics.reset()
     got, oracle = _bonding_rounds(seq, 2, monkeypatch, tmp_path)
     assert got == want
@@ -300,7 +310,7 @@ def test_mask_over_every_anchor_gives_the_empty_chain(tmp_path, monkeypatch):
                      make_base_graph("b", random_sequence(rng, 200)))
     matches = _random_matches(rng, 200, 200, 20)
     mask = _random_mask(rng, matches, 1.0)
-    assert _tree_chain(_anchorer(), matches, graphs, mask, monkeypatch) == []
+    assert _tree_chain(_anchorer(), matches, graphs, mask) == []
     metrics.reset()
     oracle = _Oracle(tmp_path)
     oracle.install(monkeypatch)
@@ -324,7 +334,7 @@ def _bubble_graph(rng, n):
     return g
 
 
-@pytest.mark.parametrize("case", ["unresolved", "not_chains", "switch_off"])
+@pytest.mark.parametrize("case", ["unresolved", "not_chains"])
 def test_out_of_reach_takes_the_tree_engine(case, tmp_path, monkeypatch):
     rng = np.random.default_rng(7600)
     if case == "not_chains":
@@ -332,7 +342,7 @@ def test_out_of_reach_takes_the_tree_engine(case, tmp_path, monkeypatch):
         graphs = _graphs(g1, make_base_graph("c", random_sequence(rng, 300)))
         matches = _random_matches(rng, 300, 300, 60)
         mask = _random_mask(rng, matches, 0.3)
-        want = _tree_chain(_anchorer(), matches, graphs, mask, monkeypatch)
+        want = _tree_chain(_anchorer(), matches, graphs, mask)
         metrics.reset()
         oracle = _Oracle(tmp_path)
         oracle.install(monkeypatch)
@@ -343,12 +353,10 @@ def test_out_of_reach_takes_the_tree_engine(case, tmp_path, monkeypatch):
         assert len(oracle.checked) == 1
     else:
         seq = _exact_tandem(np.random.default_rng(7400))
-        monkeypatch.setenv("CENTROLIGN_TPU_CHAIN_CDQ", "0")
-        want, _ = _bonding_rounds(seq, 2, monkeypatch)
-        if case == "unresolved":
-            monkeypatch.delenv("CENTROLIGN_TPU_CHAIN_CDQ")
-            monkeypatch.setattr(chain_ties.AffineTieResolver, "resolve",
-                                lambda self, *args: None)
+        with tree_engine_only():
+            want, _ = _bonding_rounds(seq, 2, monkeypatch)
+        monkeypatch.setattr(chain_ties.AffineTieResolver, "resolve",
+                            lambda self, *args: None)
         metrics.reset()
         got, _ = _bonding_rounds(seq, 2, monkeypatch)
         assert got == want

@@ -72,7 +72,6 @@ def _port_chain(monkeypatch, matches, rng_seed, device=None):
     ms = [match_finder.MatchSet(
         walks1=m.walks1.copy(), walks2=m.walks2.copy(), count1=m.count1,
         count2=m.count2, full_length=m.full_length) for m in matches]
-    monkeypatch.setenv("CENTROLIGN_TPU_CHAIN_CDQ", "1")
     anc = anchorer.Anchorer(
         score_function=ScoreFunction(),
         chaining_algorithm=anchorer.ChainAlgorithm.SparseAffine,
